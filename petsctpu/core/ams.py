@@ -2,7 +2,7 @@
 
 Reference: src/sys/ams/pams.c — PetscObjectAMSPublish exposes live
 object state (residual norms, iteration counts) over a socket so an
-external monitor can watch a running solve. TPU-era analog: a
+external monitor can watch a running solve. Analog here: a
 daemon-thread HTTP endpoint on the HOST process serving JSON
 snapshots of registered publishables plus the -log_summary state —
 solvers run under jit, so what is observable from outside is exactly

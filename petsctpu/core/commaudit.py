@@ -5,7 +5,7 @@ The reference counts messages/lengths/reductions per event at runtime
 and VecScatter sites increment irecv/isend/len counters that
 PetscLogView prints as the Mess/MessLen/Reductions columns,
 src/sys/logging/plog.c:1264). Under XLA the collectives are traced
-into one program, so the TPU-native equivalent is a COMPILE-TIME
+into one program, so the XLA-native equivalent is a COMPILE-TIME
 audit: walk the jaxpr and count collective primitives with their
 payload bytes, separating one-time work from while-loop bodies
 ("per iteration" — the Krylov loop). This is exact, free at runtime,

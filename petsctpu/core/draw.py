@@ -1,7 +1,7 @@
 """Draw — residual line graphs (-ksp_monitor_draw analog).
 
 Reference: src/sys/classes/draw (X11/OpenGL/TikZ line graphs fed by
-KSPMonitorLG). Headless TPU pods have no X11; the equivalents here are
+KSPMonitorLG). Headless accelerator hosts have no X11; the equivalents here are
 an ASCII line graph rendered to the terminal and an optional
 matplotlib PNG — both consuming the residual history that every
 SolveResult already carries (the while_loop records it on device, so

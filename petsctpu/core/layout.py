@@ -1,6 +1,6 @@
 """Row-partition layouts.
 
-The TPU equivalent of the reference's PetscLayout (reference:
+The device equivalent of the reference's PetscLayout (reference:
 src/vec/vec/impls/mpi/pmap.c:130 PetscLayoutSetUp): a contiguous
 row-range partition of a global axis over the shards of a 1-D device
 mesh axis. Unlike MPI ranks, XLA sharding requires EQUAL shard sizes,

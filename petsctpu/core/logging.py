@@ -6,7 +6,7 @@ macros accumulating time, flops, messages and reductions per event
 PetscLogEventRegister :743, PetscLogView :1264; flops logged at kernel
 sites, e.g. SpMV counts 2*nnz - nrows at src/mat/impls/aij/seq/aij.c:1219).
 
-On TPU, device execution is async: wall-clock timing is only meaningful
+Device execution is async: wall-clock timing is only meaningful
 at synchronization points. This module therefore provides:
   * `log_event(name, flops=..)` — context manager that synchronizes on
     exit when `Log.sync` is set, and accrues (count, time, flops);

@@ -2,7 +2,7 @@
 
 Reference: src/dm/impls/da (DMDACreate2d da2.c:870, DMDACreate3d
 da3.c:1480; ghost scatters da2.c:443,664; Q1 interpolation
-dainterp.c:53; stencil-based matrix preallocation fdda.c). The TPU
+dainterp.c:53; stencil-based matrix preallocation fdda.c). The device
 re-design:
 
   * vectors are grid-shaped arrays; "ghost updates" for stencil ops

@@ -8,10 +8,10 @@ patch (x fastest), ranks ordered pi = rank % m, pj = rank / m
 (da2.c:301-332). The application (natural) ordering relates to it
 through an AO permutation.
 
-On TPU this is exactly the layout a 2-D-block row-shard wants: the
-permuted matrix has contiguous per-device row ranges whose halo
-surface is O(patch perimeter) instead of the O(M) of 1-D strips, so
-ICI traffic per SpMV drops by ~2× at 4 devices (and ~√P/2× at P).
+This is exactly the layout a 2-D-block row-shard wants: the permuted
+matrix has contiguous per-device row ranges whose halo surface is
+O(patch perimeter) instead of the O(M) of 1-D strips, so halo traffic
+per SpMV drops by ~2× at 4 devices (and ~√P/2× at P).
 
 Also emulated here, for golden parity with multi-rank reference runs:
 - element ownership for per-rank FEM assembly loops (the ex49.c

@@ -10,8 +10,8 @@ Python/JAX"): 2-D triangle meshes with
     the DMPlexInterpolate analog),
   * boundary detection (DMPlexMarkBoundaryFaces analog),
   * regular refinement (each triangle → 4; DMRefine analog),
-  * P1 FEM assembly done the TPU way: ONE vmapped element-matrix
-    kernel over all cells (batched 3×3 geometry algebra on the VPU)
+  * P1 FEM assembly done the device way: ONE vmapped element-matrix
+    kernel over all cells (batched 3×3 geometry algebra)
     + COO segment-sum assembly into the frozen AIJ layout — the
     reference's MatSetValues loop (plex.c DMPlexMatSetClosure)
     becomes a single gather/scatter program.

@@ -6,7 +6,7 @@ distribution; conceptually: partition cells, ship closures, build the
 PetscSF for ghost points) and MatSetValues stashing for off-process
 rows (src/mat/utils/matstash.c).
 
-TPU shape of the same flow, all symbolic work at PLAN time:
+Device shape of the same flow, all symbolic work at PLAN time:
 
   plan (host):  partition cells (multilevel k-way on the cell dual
                 graph), assign vertex owners, renumber vertices by

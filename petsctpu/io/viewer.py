@@ -208,8 +208,7 @@ def petsc_binary_read_mat_baij(path: str, bs: int, dtype=None,
     """MatLoad for -mat_type baij from a reference binary file
     (MatLoad_SeqBAIJ baij.c:3497): the on-disk format is the scalar
     AIJ stream; the reader pads to a bs-divisible size and packs into
-    bs-blocked storage. Returns (device BAIJ [or SellBAIJ for
-    fmt='auto' on TPU], padded scipy CSR)."""
+    bs-blocked storage. Returns (device BAIJ, padded scipy CSR)."""
     from petsctpu.mat.bsr import baij_from_scipy_bsr
 
     A = pad_to_block_size(petsc_binary_read_mat(path), bs)

@@ -52,14 +52,14 @@ KSP_REGISTRY = {
     "qcg": solve_stcg,
     "pgmres": solve_gmres,     # CGS orth already fuses to ONE reduction/iter
     "cr": solve_cr,
-    "pipecr": solve_cr,        # fused-reduction CR (same TPU structure)
+    "pipecr": solve_cr,        # fused-reduction CR (same device structure)
     "tfqmr": solve_tfqmr,
     "cgne": solve_cgne,
     "fbcgs": solve_fbcgs,
     "fbcgsr": solve_fbcgsr,
     "cg": solve_cg,
     "pipecg": solve_pipecg,
-    "groppcg": solve_pipecg,    # same single-reduction structure on TPU
+    "groppcg": solve_pipecg,    # same single-reduction structure here
     "gmres": solve_gmres,
     "fgmres": solve_fgmres,
     "fgmres_host": None,       # filled below (import-cycle: needs registry)

@@ -4,11 +4,11 @@ Reference: KSPSolve_CG (src/ksp/ksp/impls/cg/cg.c:92) with its NaN/Inf
 guard (cg.c:152) and indefinite-PC/matrix detection (cg.c:188);
 pipelined variant KSPSolve_PIPECG (src/ksp/ksp/impls/cg/pipecg/
 pipecg.c:45) which overlaps the allreduce with the SpMV; GROPPCG
-likewise. On TPU the "overlap" is expressed by fusing the two inner
+likewise. Here the "overlap" is expressed by fusing the two inner
 products of an iteration into ONE psum (reduce_all) and, for pipecg,
 restructuring so each iteration has a single fused reduction whose
 result is consumed after the next SpMV — which XLA can schedule
-asynchronously over ICI.
+asynchronously.
 """
 
 from __future__ import annotations
@@ -108,8 +108,8 @@ def solve_cg_single(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     iteration's inner products merge into ONE fused reduction — at the
     cost of the extra matmult s = Az. On the device mesh this is 1
     collective per iteration (vs 2 for plain CG); with an HBM-bound
-    operator the extra SpMV usually costs more than the saved psum on
-    ICI, which is why the reference gates it behind an option too."""
+    operator the extra SpMV usually costs more than the saved psum,
+    which is why the reference gates it behind an option too."""
     dtype = b.dtype
     x = x0
     r = b - A.mult(x) if cfg.guess_nonzero else b

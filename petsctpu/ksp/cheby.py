@@ -2,8 +2,8 @@
 
 Reference: KSPSolve_Chebychev (src/ksp/ksp/impls/cheby/cheby.c:345):
 no inner products in the hot loop, which is why it is the default MG
-smoother — on TPU this means ZERO collectives per iteration, ideal
-over ICI (SURVEY §2.10 P4). Eigenvalue bounds are auto-estimated like
+smoother — on a device mesh this means ZERO collectives per
+iteration (SURVEY §2.10 P4). Eigenvalue bounds are auto-estimated like
 the reference's `specest`/estimate-eigenvalues option: a few power
 iterations on M⁻¹A, then (emin, emax) = (0.1, 1.1)·λmax — matching
 the reference's default transform factors.

@@ -7,7 +7,7 @@ deflation space U, and precondition subsequent cycles with
 M_D⁻¹ = I + U(σ·T⁻¹ − I)Uᵀ, T = Uᵀ(A M⁻¹)U — removing the small
 eigenvalues that make restarted GMRES stall).
 
-Structure note: the reference calls LAPACK between cycles; XLA/TPU has
+Structure note: the reference calls LAPACK between cycles; XLA has
 no in-graph nonsymmetric eigensolver, so this solver is HOST-DRIVEN —
 each Arnoldi cycle is one jitted device program, and the m×m Ritz
 extraction runs in numpy between cycles (exactly the reference's

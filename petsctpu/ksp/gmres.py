@@ -7,8 +7,8 @@ refinement, borthog2.c; modified GS, borthog.c); FGMRES
 (src/ksp/ksp/impls/gmres/fgmres) stores the preconditioned directions
 so the preconditioner may change per iteration.
 
-TPU mapping: the Krylov basis V is a [m+1, n] matrix; classical GS is
-ONE V@w matvec (MXU) + one psum — the reference's VecMDot hot spot
+Device mapping: the Krylov basis V is a [m+1, n] matrix; classical GS
+is ONE V@w matvec + one psum — the reference's VecMDot hot spot
 (dvec2.c:36) becomes a single fused reduction. Modified GS is provided
 for parity but costs m sequential dots. All shapes static; the active
 column count j is masked.

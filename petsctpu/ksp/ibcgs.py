@@ -5,7 +5,7 @@ BiCGStab: all six inner products of an iteration are arranged to be
 computable from the same two vectors sn/tn, merged with the LAGGED
 residual norm into a single 7-term MPI_Allreduce, ibcgs.c:185-217).
 
-TPU mapping: the 7 local contractions fuse into one `ops.reduce_all`
+Device mapping: the 7 local contractions fuse into one `ops.reduce_all`
 psum. Like the reference, the DEFAULT convergence norm is the current
 iteration's ‖rn‖ (a second reduction, ibcgs.c:238-243); with
 cfg.lag_norm (-ksp_lag_norm) the lagged norm rides the single fused

@@ -27,7 +27,7 @@ def solve_lcd(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     directions: βⱼ = −(Pⱼ·Q_new)/(Pⱼ·Qⱼ), applied to both P and Q.
     Restart copies the last direction to slot 0 (lcd.c:116).
 
-    TPU shape: the j-loop of lcd.c:106-112 collapses into ONE masked
+    Device shape: the j-loop of lcd.c:106-112 collapses into ONE masked
     [m,n]@[n] matvec per new direction (fused reduction)."""
     dtype = b.dtype
     m = cfg.restart + 1

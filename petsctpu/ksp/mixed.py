@@ -1,8 +1,7 @@
-"""Mixed-precision iterative refinement — a TPU-native extra.
+"""Mixed-precision iterative refinement — an extra beyond the reference.
 
-Beyond the reference (which is fixed-precision per build): TPU fp64 is
-software-emulated and an order of magnitude slower than fp32, while
-fp32 Krylov stalls near 1e-6 relative residuals. Iterative refinement
+The reference is fixed-precision per build. fp32 moves half the bytes
+of fp64, while fp32 Krylov stalls near its rounding floor. Iterative refinement
 gets both: the inner Krylov solve runs entirely in fast fp32 (where
 the SpMV/reduction flops are), while the outer loop computes true
 residuals and accumulates the solution in fp64 — classic Wilkinson IR

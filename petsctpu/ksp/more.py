@@ -136,7 +136,7 @@ def solve_gcr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     """GCR(m) (reference gcr.c). Right-preconditioned and flexible; the
     orthogonalization of the new direction against the stored A-images
     is ONE fused [m,n]@[n] matvec + psum (the VecMDots of gcr.c:40
-    collapse onto the MXU)."""
+    collapse into one product)."""
     dtype = b.dtype
     m = cfg.restart
     n = b.shape[0]

@@ -10,7 +10,7 @@ then configures `kspcheap` (default Chebyshev with bounds
 [0.9·σmin, 1.1·σmax], maxits 5, norm NONE / KSPSkipConverged; or
 Richardson with scale richfactor/rad) for every later solve.
 
-TPU mapping: SpecEst is inherently STATEFUL across applications, which
+Device mapping: SpecEst is inherently STATEFUL across applications, which
 cannot live inside one jitted while_loop — so it is a host-stateful PC
 (`SpecEstPC`, the "stateful host-side wrapper" design), and the outer
 flexible solver that drives it is the host-driven FGMRES below

@@ -1,18 +1,17 @@
-"""BandMat — MXU-tiled banded matrices (general irregular SpMV path).
+"""BandMat — dense-tiled banded matrices (general irregular SpMV path).
 
 The medium-size irregular matrices of the reference's own headline
 benchmark (BAIJ bs=3 oil-reservoir system, src/benchmarks/results/
 performance_medium) become BANDED after RCM: bandwidth B ~ sqrt(n).
-Gather SpMV runs at ~8 ns/element on TPU; a diagonal-by-diagonal DIA
-sum generates O(B) tiny kernels. This format instead tiles the band
-into dense [T, T+2B] row blocks and applies them as ONE batched
-einsum — the MXU does the work, XLA fuses everything, and x's sliding
-windows are built from reshaped chunks (no gather anywhere).
+A diagonal-by-diagonal DIA sum generates O(B) tiny kernels. This
+format instead tiles the band into dense [T, T+2B] row blocks and
+applies them as ONE batched einsum — XLA fuses everything, and x's
+sliding windows are built from reshaped chunks (no gather anywhere).
 
     y[tT:(t+1)T] = tiles[t] @ x_padded[tT : tT + T + 2B]
 
 Storage/traffic = n·(T+2B) values ≈ (1.5-2)× the band area — the
-classic LAPACK gbmv layout, tiled for a systolic array. Use for
+classic LAPACK gbmv layout, tiled for batched matmuls. Use for
 banded/RCM-ordered systems with B up to a few thousand; keep ELL for
 genuinely unbandable sparsity.
 """
@@ -92,6 +91,17 @@ class BandMat:
             * self.tiles.dtype.itemsize
 
 
+def band_tile(bandwidth: int) -> int:
+    """Default tile: the smallest 128-multiple >= max(128, B/2)."""
+    return max(128, -(-max(bandwidth, 1) // 256) * 128)
+
+
+def band_slots(n: int, bandwidth: int) -> int:
+    """Values stored by the tiles band_from_scipy builds: n·(T+2B)."""
+    T = band_tile(bandwidth)
+    return -(-n // T) * T * (T + 2 * bandwidth)
+
+
 def band_from_scipy(A, dtype=None, perm=None, tile: int = None) -> BandMat:
     """Build from (optionally RCM-permuted) A. tile defaults to the
     smallest 128-multiple ≥ max(128, B/2) (bounds window overhead)."""
@@ -102,9 +112,7 @@ def band_from_scipy(A, dtype=None, perm=None, tile: int = None) -> BandMat:
     n = A.shape[0]
     coo = A.tocoo()
     B = int(np.abs(coo.col - coo.row).max()) if A.nnz else 0
-    if tile is None:
-        tile = max(128, -(-max(B, 1) // 256) * 128)
-    T = tile
+    T = tile or band_tile(B)
     nt = -(-n // T)
     W = T + 2 * B
     tiles = np.zeros((nt, T, W), dtype or A.dtype)

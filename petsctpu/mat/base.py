@@ -3,7 +3,7 @@
 The reference has a family of wrapper Mat types — MATSHELL (user
 callback), MATTRANSPOSE, MATNORMAL (AᵀA implicit), MATCOMPOSITE (ΣAᵢ or
 product), MATLRC (A + U C Vᵀ) — see src/mat/impls/{shell,transpose,
-normal,composite,lrc} and SURVEY.md §2.3. On TPU these are just pytree
+normal,composite,lrc} and SURVEY.md §2.3. Here these are just pytree
 dataclasses whose `mult` composes other operators' `mult`; XLA fuses
 the arithmetic, so implicit operators are essentially free.
 

@@ -2,10 +2,9 @@
 
 The reference's SeqBAIJ/MPIBAIJ (src/mat/impls/baij — unrolled kernels
 per block size, e.g. MatMult_SeqBAIJ_4 baij2.c:387) exist because dense
-bs×bs blocks amortize index overhead. On TPU the blocked layout is even
-more natural: block SpMV becomes a batched small-matrix contraction
-(einsum) that the compiler maps onto VPU/MXU lanes, and point-block
-Jacobi needs exactly these dense blocks.
+bs×bs blocks amortize index overhead. Here block SpMV is a batched
+small-matrix contraction (einsum) over gathered x blocks, and
+point-block Jacobi needs exactly these dense blocks.
 
 Layout: block-ELL. brows = m/bs block rows padded to width K:
   cols [brows, K]       block-column indices
@@ -78,18 +77,15 @@ class BAIJ:
 @jax.tree_util.register_dataclass
 @dataclass(frozen=True)
 class SellBAIJ:
-    """BAIJ whose forward SpMV runs the scalar SELL Pallas kernel on
-    the block-expanded pattern.
+    """BAIJ whose forward SpMV runs the scalar SellMat on the
+    block-expanded pattern (fmt="sell").
 
     The reference's per-bs unrolled kernels (MatMult_SeqBAIJ_4,
     src/mat/impls/baij/seq/baij2.c:387) exist to amortize index loads
-    over dense blocks; SELL's lane-gather already amortizes them —
-    blocked structure makes the window buckets dense (slop ~2 on the
-    ex56 elasticity operator vs ~5.7 on a scrambled scalar 27-point),
-    so the scalar kernel IS the blocked fast path on TPU: measured
-    5.8e10 scalar-nnz/s vs 2.8e9 for the batched-gather block-ELL
-    route. Blocked metadata (diag blocks for PBJacobi, multT,
-    SetValuesBlocked layouts) stays on the BAIJ side."""
+    over dense blocks; blocked structure also makes SELL's window
+    buckets dense (low slop). Blocked metadata (diag blocks for
+    PBJacobi, multT, SetValuesBlocked layouts) stays on the BAIJ
+    side."""
 
     base: BAIJ
     sell: Any
@@ -144,10 +140,9 @@ class SellBAIJ:
 def baij_from_scipy_bsr(A, bs: int = None, dtype=None,
                         fmt: str = "auto"):
     """Build from scipy (any format); converts to BSR with block size
-    bs. fmt="auto" (default — the reference's default MatMult_SeqBAIJ
-    is its unrolled fast kernel, baij2.c:387) wraps the forward SpMV
-    in the scalar SELL kernel when viable on TPU (fp32); "ell" keeps
-    the batched block-gather einsum route."""
+    bs. fmt="sell" wraps the forward SpMV in the scalar SellMat
+    (fp32, raises when not viable); "auto" and "ell" keep the batched
+    block-gather einsum route."""
     import scipy.sparse as sp
 
     if not sp.issparse(A):
@@ -170,15 +165,12 @@ def baij_from_scipy_bsr(A, bs: int = None, dtype=None,
                 scal_nnz)
     f32 = np.dtype(dtype or B.dtype) == np.float32
     if fmt == "sell" and not f32:
-        raise ValueError("fmt='sell' needs float32 (the Pallas "
-                         "kernel's performance dtype)")
-    if f32 and (fmt == "sell"
-                or (fmt == "auto" and jax.default_backend() == "tpu")):
+        raise ValueError("fmt='sell' needs float32 (SellMat's dtype)")
+    if fmt == "sell":
         from petsctpu.mat.sell import sell_from_scipy, sell_viable
         C = sp.csr_matrix(B).astype(np.float32)
         C.sum_duplicates()
-        if sell_viable(C):
-            return SellBAIJ(base, sell_from_scipy(C))
-        if fmt == "sell":
+        if not sell_viable(C):
             raise ValueError("fmt='sell': operator not SELL-viable")
+        return SellBAIJ(base, sell_from_scipy(C))
     return base

@@ -3,7 +3,7 @@
 The reference assembles matrices incrementally with MatSetValues +
 MatStash rendezvous communication for off-owner entries
 (src/mat/impls/aij/mpi/mpiaij.c:476, src/mat/utils/matstash.c:435).
-Mutable insertion is anti-XLA; the TPU-native pattern (SURVEY §2.10 P5)
+Mutable insertion is anti-XLA; the JAX-native pattern (SURVEY §2.10 P5)
 is: generate ALL (row, col, val) triples batched (e.g. per-element FEM
 contributions), then sort + segment-merge on device into a frozen ELL
 layout. Duplicate (row, col) entries are summed — ADD_VALUES semantics,

@@ -1,6 +1,6 @@
 """Dense matrix operator (SeqDense analog, src/mat/impls/dense).
 
-On TPU a dense mult is a single MXU matmul; factorizations use
+A dense mult is a single matmul; factorizations use
 jax.scipy/lax.linalg (LU/Cholesky), replacing the reference's
 LAPACK dependency.
 """
@@ -26,9 +26,8 @@ class Dense:
     def dtype(self):
         return self.M.dtype
 
-    # precision="highest": the TPU matmul default is bf16 MXU inputs,
-    # which silently loses ~16 mantissa bits — solver math (residuals,
-    # smoothers, Galerkin products) needs full fp32 (bf16x3 passes)
+    # precision="highest": solver math (residuals, smoothers, Galerkin
+    # products) needs full fp32, never reduced-precision products
     def mult(self, x):
         return jnp.dot(self.M, x, precision="highest")
 

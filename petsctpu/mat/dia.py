@@ -1,16 +1,13 @@
-"""DiaMat — general diagonal-offset (DIA) storage, the TPU answer to
-irregular CSR.
+"""DiaMat — general diagonal-offset (DIA) storage for banded matrices.
 
-Rationale (measured on v5e): XLA lowers arbitrary gathers to ~8 ns per
-element, so ELL SpMV on a 1M-row matrix runs at ~1 GB/s. A diagonal
-layout has NO index arrays — every diagonal is a contiguous stream
-multiplied against a shifted read of x — and runs at the HBM roofline.
-Even when RCM banding fills the band with D ≈ 2·bandwidth diagonals
-(a 10-15× nonzero "fill" at n ~ 1M), streaming D·n values beats
-gathering nnz values by ~two orders of magnitude while the bandwidth
-stays ≲ a few thousand. This is the reference's AIJPERM/CRL
-"regularize the layout" idea (src/mat/impls/aij/seq/{csrperm,crl})
-pushed to its TPU endpoint, generalizing StencilMat (mat/stencil.py)
+Rationale: a diagonal layout has NO index arrays — every diagonal is a
+contiguous stream multiplied against a shifted read of x — so it
+trades the gather of nnz values for streaming D·n values, where RCM
+banding fills the band with D ≈ 2·bandwidth diagonals. Whether that
+trade wins depends on the device's gather cost; a benchmark cell
+decides. This is the reference's AIJPERM/CRL "regularize the layout"
+idea (src/mat/impls/aij/seq/{csrperm,crl}) pushed to its endpoint,
+generalizing StencilMat (mat/stencil.py)
 from grid stencils to arbitrary banded matrices.
 
 Recipe for an irregular matrix A:

@@ -1,14 +1,14 @@
-"""AIJ — the core sparse matrix format, ELL-packed for TPU.
+"""AIJ — the core sparse matrix format, ELL-packed.
 
 The reference's foundational format is CSR ("SeqAIJ",
 src/mat/impls/aij/seq/aij.c — MatMult_SeqAIJ :1173 is THE hot kernel).
-A CSR row loop with variable row lengths is hostile to the TPU's 8x128
-VPU tiling, so the device layout here is ELLPACK: every row padded to a
+A CSR row loop with variable row lengths maps poorly onto fixed-shape
+XLA programs, so the device layout here is ELLPACK: every row padded to a
 fixed width K (cols[n,K], vals[n,K]); SpMV is a dense gather + multiply
 + row-sum that XLA tiles cleanly. This is the same evolution the
 reference itself started with its AIJPERM/AIJCRL constant-row-length
 formats (src/mat/impls/aij/seq/{csrperm,crl}) — ELL is their natural
-endpoint on TPU.
+endpoint.
 
 Padding convention: col = 0, val = 0 (padding contributes 0·x[0]).
 
@@ -96,7 +96,7 @@ class AIJ:
     def rows_sum(self) -> jax.Array:
         return jnp.sum(self.vals, axis=1)
 
-    # -- SpMM: sparse times dense (MXU-friendly) ---------------------------
+    # -- SpMM: sparse times dense ------------------------------------------
     def mult_dense(self, X: jax.Array) -> jax.Array:
         """Y = A X for dense X [n, k]: gathers X rows then contracts."""
         gathered = X[self.cols]            # [m, K, k]

@@ -3,14 +3,14 @@
 Reference: MatILUFactorSymbolic/MatLUFactorNumeric_SeqAIJ
 (src/mat/impls/aij/seq/aijfact.c:122,285,461) and MatSolve_SeqAIJ
 (aijfact.c:603). The reference's row-by-row sequential solve is the
-wrong shape for a TPU, so the design splits:
+wrong shape for a data-parallel device, so the design splits:
 
   * NUMERIC factorization on host (numpy over CSR) at PCSetUp time —
     setup is plan-time work, exactly where the reference also does it.
   * TRIANGULAR SOLVES on device via LEVEL SCHEDULING: rows are grouped
     into dependency levels (wavefronts); all rows in a level solve in
     parallel as an ELL gather + fused multiply-add, and a `fori_loop`
-    walks levels. This is the standard GPU/TPU SpTRSV decomposition —
+    walks levels. This is the standard GPU SpTRSV decomposition —
     the sequential depth drops from n to nlevels (≈ grid diameter for
     stencil ILU(0)).
 """
@@ -386,12 +386,11 @@ class SpTRSVPlan:
 @jax.tree_util.register_dataclass
 @dataclass(frozen=True)
 class DenseTRSVPlan:
-    """Dense triangular solve on the MXU — the robustness fallback for
+    """Dense triangular solve as matmuls — the robustness fallback for
     small-n factors whose fill pattern is neither band-viable nor
     level-schedulable in reasonable depth (SuperLU ILUT factors reach
     ~n bandwidth and ~1000 dependency levels; the level-scheduled
-    fori_loop then issues ~1e9 scalar gathers in one program, which
-    trips the relay's execution watchdog — PARITY.md r5). n <= 4096
+    fori_loop then issues ~1e9 scalar gathers in one program). n <= 4096
     keeps the [n, n] operand <= 64 MB fp32."""
 
     T: jax.Array                   # [n, n] dense triangle
@@ -473,7 +472,7 @@ def make_sptrsv_plan(T, lower: bool, unit_diag: bool, dtype=None,
 
 
 # ---------------------------------------------------------------------------
-# Banded triangular solve — MXU-tiled back-substitution
+# Banded triangular solve — dense-tile back-substitution
 # ---------------------------------------------------------------------------
 
 @jax.tree_util.register_dataclass
@@ -482,11 +481,11 @@ class BandTRSVPlan:
     """Blocked banded back-substitution: x = T⁻¹ b.
 
     Level-scheduled SpTRSV (above) issues one gather round per
-    dependency level — fine on CPUs, latency-dominated on TPU (the
-    reference's MatSolve event is the one place the 1996 numbers were
-    competitive). For BANDED triangles (natural after RCM), this plan
-    instead inverts each [T,T] diagonal tile densely at setup and runs
-    ONE `lax.scan` over the band:
+    dependency level — fine on CPUs, latency-dominated on an
+    accelerator (the reference's MatSolve event is the one place the
+    1996 numbers were competitive). For BANDED triangles (natural
+    after RCM), this plan instead inverts each [T,T] diagonal tile
+    densely at setup and runs ONE `lax.scan` over the band:
 
         x_t = Dinv_t (b_t − Off_t @ x_window)
 
@@ -540,7 +539,7 @@ class BandTRSVHierPlan:
     inflow, batched over all G groups (L sequential steps of [G,·]
     work); (2) boundary recurrence over G groups ([W,W] matvecs);
     (3) one batched correction x_t += Q_t[last T rows] · v_g. This is
-    the latency-optimal shape for the MXU: ~L+G launches instead of nt.
+    the latency-optimal shape: ~L+G launches instead of nt.
     """
 
     dinv_tiles: jax.Array            # [L, G, T, T]
@@ -627,9 +626,8 @@ def make_band_trsv_hier_plan(Tmat, lower: bool, unit_diag: bool, dtype=None,
     plan's tiling, then precomputes propagator products on device
     (one jitted scan — the host triple loop took seconds per plan).
 
-    tile default is 128 (measured best for the two-phase shape on
-    v5e: 1096 MFlop/s vs 987 at 256 on the medium ILU factors — the
-    batched phase-1/3 ops amortize launches, so smaller tiles win).
+    tile default is 128: the batched phase-1/3 ops amortize launches,
+    so smaller tiles suit the two-phase shape.
 
     pad_to=(nt, W) forces uniform static shapes so plans from
     different local blocks can be stacked for vmap (bjacobi/ASM)."""
@@ -689,8 +687,7 @@ def make_band_trsv_plan(Tmat, lower: bool, unit_diag: bool, dtype=None,
 
     tile=None auto-selects: each scan step is launch-latency-bound, so
     fewer/larger tiles win until per-step matvec work overtakes the
-    latency (measured on v5e: 128→446, 256→942, 512→693 MFlop/s on the
-    n=10800 medium triangle) — 256 for all but tiny systems.
+    latency — 256 for all but tiny systems.
 
     pad_to=(nt, W) forces at-least dimensions (identity diagonal tiles
     / zero off columns) so plans of different blocks stack for vmap.

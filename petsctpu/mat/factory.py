@@ -7,15 +7,14 @@ the storage format at runtime. Device formats here:
   aij      ELL-packed general sparse (gather SpMV — robust default)
   baij     block ELL (needs -mat_block_size)
   sbaij    symmetric block upper-triangle storage
-  dense    MXU dense
+  dense    dense matrix
   dia      diagonal-offset streams (few-diagonal matrices)
-  band     MXU-tiled band (RCM-ordered irregular — the TPU fast path
-           for file-driven ex10-style workloads)
-  sell     Pallas sliced-ELL (mat/sell.py): the fast irregular path
-           when the RCM band is too wide for `band` (fp32 only;
-           2.5e10 nnz/s measured vs 1.25e8 for the aij gather)
-  auto     pick for the hardware: band if the RCM band is narrow,
-           else sell if viable (fp32/TPU), else aij
+  band     dense-tiled band (RCM-ordered irregular, for file-driven
+           ex10-style workloads)
+  sell     sliced-ELL with window-grouped rows (mat/sell.py, fp32
+           only)
+  auto     band if the band (natural or RCM) holds at most twice the
+           nonzeros, a stencil if grid recovery succeeds, else aij
 
 band/dia/sell solve in the permuted space: the returned `perm` (or
 None) must be applied to b and inverted on x.
@@ -81,116 +80,80 @@ def mat_from_options(A, opts=None, mat_type: str = None, dtype=None):
 
 
 def _auto_format(A: sp.csr_matrix, ordering: str, dtype):
-    """Hardware-aware default: narrow band -> BandMat (751 GB/s);
-    wide band but SELL-viable (fp32) -> SellMat (2.5e10 nnz/s); else
-    the robust aij/ELL gather path.
+    """Default format: a band (natural or RCM) dense enough that its
+    storage stays within twice the nonzeros -> BandMat; a recovered
+    structured grid -> StencilMat; else the aij/ELL gather path.
 
     Ordering policy (the reference's default kernel is its fast
     kernel, aij.c:1173, and its Inode/CRL detection upgrades the
     layout silently): the NATURAL ordering is tried first — when the
-    matrix is already banded or SELL-viable as given, no permutation
-    is applied at all (parity-safe: values, ordering, and iteration
-    counts are untouched). Only when natural fails does the plan
-    evaluate permutations, choosing by the SELL plan's own pass-count
-    cost model (per-row q-chunk dispersion — see mat/sell.py)."""
-    import jax
-
+    matrix is already banded as given, no permutation is applied at
+    all (parity-safe: values, ordering, and iteration counts are
+    untouched). Only when natural fails does the plan evaluate
+    permutations."""
     from petsctpu.mat import aij_from_scipy, band_from_scipy
+    from petsctpu.mat.band import band_slots
     from petsctpu.mat.order import bandwidth, get_ordering
 
     n = A.shape[0]
-    band_thresh = max(512, n // 64)
-    f32 = np.dtype(dtype or A.dtype) == np.float32
-    tpu = jax.default_backend() == "tpu"
+
+    def band_ok(M):
+        # the band stores n·(T+2B) values and reads each once; ELL
+        # reads a value and a column index per nonzero. Past twice the
+        # nonzeros the band moves more bytes than ELL, and its storage
+        # grows with B (n·2B: 10.7 GB fp32 for a 5-point 1024² grid)
+        return band_slots(n, bandwidth(M)) <= 2 * A.nnz
 
     # 1) natural band (identity perm — fastest AND parity-exact)
-    if bandwidth(A) <= band_thresh:
+    if band_ok(A):
         return band_from_scipy(A, dtype=dtype), None
 
-    # 2) natural SELL — near-ideal slop short-circuits with NO perm
-    from petsctpu.mat.sell import (sell_from_scipy, sell_plan_stats,
-                                   sell_viable)
-    avg = A.nnz / max(n, 1)
-    An = A.copy()
-    An.sum_duplicates()
-    best = None                     # (P, perm|None, matrix)
-    if f32 and tpu and sell_viable(An):
-        Pn = sell_plan_stats(An)[0]
-        if Pn <= 2.0 * avg:
-            return sell_from_scipy(An), None
-        best = (Pn, None, An)
+    # 2) structured-grid recovery (mat/griddetect): a recovered grid
+    #    becomes coefficient streams with no index arrays at all
+    from petsctpu.mat.griddetect import grid_recover_ordering
+    gperm, gdims = grid_recover_ordering(A, return_dims=True)
+    if gperm is not None:
+        # a recovered grid is a <= 3^d-offset stencil with ~zero band
+        # fill: build stencil coefficient STREAMS directly
+        # (mat/stencil.py)
+        Ag = A[gperm][:, gperm].tocsr()
+        Ag.sum_duplicates()
+        cog = Ag.tocoo()
+        rcs = np.unravel_index(cog.row, gdims)
+        ccs = np.unravel_index(cog.col, gdims)
+        # stencil offsets are in {-1,0,1}^d (verified by the recovery)
+        # — encode each as one base-3 int so the dedup is a plain
+        # integer unique, not a lexsort over rows
+        key = np.zeros(cog.row.shape, np.int64)
+        for rk, ck in zip(rcs, ccs):
+            key = key * 3 + (ck.astype(np.int64) - rk + 1)
+        okeys, oinv = np.unique(key, return_inverse=True)
+        K = len(okeys)
+        if K * n <= 2.0 * max(Ag.nnz, 1):   # boundary-pad guard
+            import jax.numpy as jnp
 
-    # 3) structured-grid recovery FIRST (mat/griddetect): when it
-    #    succeeds the stencil's pass count collapses to ~avg_row and
-    #    beats any profile ordering, so the RCM candidate evaluation
-    #    below is skipped entirely (it was ~half the 64³ plan time)
-    grid_won = False
-    if best is None or best[0] > 2.0 * avg:
-        from petsctpu.mat.griddetect import grid_recover_ordering
-        gperm, gdims = grid_recover_ordering(A, return_dims=True)
-        if gperm is not None:
-            # a recovered grid is a <= 3^d-offset stencil with ~zero
-            # band fill: build stencil coefficient STREAMS directly
-            # (mat/stencil.py — no index arrays at all; 622 -> 706
-            # GB/s over the recovered-SELL route on the 64^3 27-point
-            # probe, same kernel the 16.7M-row roofline bench rides)
-            Ag = A[gperm][:, gperm].tocsr()
-            Ag.sum_duplicates()
-            cog = Ag.tocoo()
-            rcs = np.unravel_index(cog.row, gdims)
-            ccs = np.unravel_index(cog.col, gdims)
-            # stencil offsets are in {-1,0,1}^d (verified by the
-            # recovery) — encode each as one base-3 int so the
-            # dedup is a plain integer unique, not a 6.8M-row
-            # lexsort (np.unique axis=0 cost ~15 s on the 64^3 probe)
-            key = np.zeros(cog.row.shape, np.int64)
-            for rk, ck in zip(rcs, ccs):
-                key = key * 3 + (ck.astype(np.int64) - rk + 1)
-            okeys, oinv = np.unique(key, return_inverse=True)
-            K = len(okeys)
-            if K * n <= 2.0 * max(Ag.nnz, 1):   # boundary-pad guard
-                import jax.numpy as jnp
+            from petsctpu.mat.stencil import StencilMat
+            offs = []
+            for ok in okeys:
+                o, ds = [], int(ok)
+                for _ in gdims:
+                    o.append(ds % 3 - 1)
+                    ds //= 3
+                offs.append(tuple(reversed(o)))
+            C = np.zeros((K,) + tuple(gdims), np.dtype(dtype or A.dtype))
+            C[(oinv,) + rcs] = cog.data
+            return (StencilMat(jnp.asarray(C), tuple(offs),
+                               tuple(gdims)), gperm)
+        if band_ok(Ag):
+            return band_from_scipy(A, dtype=dtype, perm=gperm), gperm
 
-                from petsctpu.mat.stencil import StencilMat
-                offs = []
-                for ok in okeys:
-                    o, ds = [], int(ok)
-                    for _ in gdims:
-                        o.append(ds % 3 - 1)
-                        ds //= 3
-                    offs.append(tuple(reversed(o)))
-                C = np.zeros((K,) + tuple(gdims),
-                             np.dtype(dtype or A.dtype))
-                C[(oinv,) + rcs] = cog.data
-                return (StencilMat(jnp.asarray(C), tuple(offs),
-                                   tuple(gdims)), gperm)
-            if f32 and tpu and n < 2_000_000 and sell_viable(Ag):
-                Pg = sell_plan_stats(Ag)[0]
-                if best is None or Pg < best[0]:
-                    best = (Pg, gperm, Ag)
-                    grid_won = True
-            elif bandwidth(Ag) <= band_thresh:
-                return (band_from_scipy(A, dtype=dtype, perm=gperm),
-                        gperm)
-
-    # 4) profile (RCM) candidates — only when grid recovery didn't
-    #    already win (a recovered stencil's pass count collapses to
-    #    ~avg_row, unbeatable by any band profile). The candidate
-    #    RANKING only needs an RCM-shaped profile, not SPARSPAK-exact
-    #    tie-breaks (-pc_factor_mat_ordering_type parity keeps
-    #    genrcm): scipy's RCM is ~20x faster at 262k rows.
-    if not grid_won:
-        perm = get_ordering(A, "rcm_fast" if ordering == "rcm"
-                            else ordering)
-        Ap = A[perm][:, perm].tocsr()
-        if bandwidth(Ap) <= band_thresh:
-            return band_from_scipy(A, dtype=dtype, perm=perm), perm
-        if f32 and tpu:
-            Ap.sum_duplicates()
-            if sell_viable(Ap):
-                Pp = sell_plan_stats(Ap)[0]
-                if best is None or Pp < best[0]:
-                    best = (Pp, perm, Ap)
-    if best is not None:
-        return sell_from_scipy(best[2]), best[1]
+    # 3) profile (RCM) candidate. The band test only needs an
+    #    RCM-shaped profile, not SPARSPAK-exact tie-breaks
+    #    (-pc_factor_mat_ordering_type parity keeps genrcm): scipy's
+    #    RCM is much faster on large operators.
+    perm = get_ordering(A, "rcm_fast" if ordering == "rcm" else ordering)
+    Ap = A[perm][:, perm].tocsr()
+    if band_ok(Ap):
+        return band_from_scipy(A, dtype=dtype, perm=perm), perm
     return aij_from_scipy(A, dtype=dtype), None
+

@@ -1,8 +1,8 @@
 """MATFFT analog + FFT-based fast Poisson solver.
 
 Reference: src/mat/impls/fft wraps FFTW/CUFFT as a Mat whose MatMult
-is the (multi-dimensional) DFT. Here the DFT is jnp.fft (XLA-native,
-runs on TPU); no external library. On top of it, a DST-I spectral
+is the (multi-dimensional) DFT. Here the DFT is jnp.fft (XLA-native);
+no external library. On top of it, a DST-I spectral
 solver gives an *exact* O(N log N) solve of the constant-coefficient
 Dirichlet Laplacian — usable standalone or as a PC for
 variable-coefficient problems (shifted-Laplacian preconditioning).

@@ -11,7 +11,7 @@ achieves that — they bound |col - row| but scramble the alignment
 WITHIN the band.  For operators that actually came from a structured
 grid, the right locality transform is to recover the grid itself.
 
-This is the TPU analog of the reference's silent layout upgrades on
+This is the device analog of the reference's silent layout upgrades on
 AIJ matrices (Inode detection aij.c: MatMult_SeqAIJ_Inode, AIJPERM /
 AIJCRL groupings — src/mat/impls/aij/seq/{inode.c,csrperm,crl}): the
 user hands over a generic CSR matrix, plan-time analysis discovers the

@@ -2,7 +2,7 @@
 
 Reference: src/mat/impls/maij (MATMAIJ: applies a scalar matrix to each
 of `dof` interleaved components — used by DMDA interpolation with
-dof > 1 so only the scalar interpolation stencil is stored). TPU
+dof > 1 so only the scalar interpolation stencil is stored). Device
 mapping: the interleaved multi-DOF multiply IS the scalar matrix's
 SpMM over a [n, dof] right-hand side — a strictly better-shaped kernel
 (row-sum over dense [K, dof] tiles) than dof separate SpMVs.

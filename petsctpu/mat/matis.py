@@ -6,7 +6,7 @@ format for Neumann-Neumann / BDDC domain decomposition). The global
 operator is never assembled; MatMult gathers, applies each local
 matrix, and scatter-adds.
 
-TPU mapping: when subdomains share a size (the common DD case) the
+Device mapping: when subdomains share a size (the common DD case) the
 per-subdomain applies are vmapped into one batched ELL SpMV; otherwise
 a static Python loop (subdomain count is a plan-time constant).
 """

@@ -14,7 +14,7 @@ three native plan-time methods are provided:
                reverse Cuthill-McKee (low-bandwidth path through the
                graph), cut into contiguous chunks. Cheap, and for
                PDE meshes yields the quasi-1-D strips a row-sharded
-               TPU layout wants anyway.
+               layout wants anyway.
   * "rcb"    — recursive coordinate bisection when vertex coordinates
                are supplied (the geometric partitioner family).
 

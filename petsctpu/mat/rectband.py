@@ -13,9 +13,8 @@ B[j, d] = R[j, s·j + off + d], and
 
 where the operand window r[s·j + off + d] is assembled from
 ceil(W/s)+1 STATIC strided reshapes of r — no gather instructions at
-all, so the kernel runs at vector/HBM speed instead of the ~2e8
-picks/s scalar-gather rate that made ELL restriction the dominant MG
-cycle cost on TPU.  (The square-operator analog is mat/band.py; this
+all, in place of the scalar gathers of an ELL restriction.  (The
+square-operator analog is mat/band.py; this
 generalizes it to rectangular slope-s operators.)
 """
 

@@ -2,7 +2,7 @@
 
 Reference: src/mat/impls/sbaij/seq/sbaij.c (SeqSBAIJ: BSR storing only
 the upper block triangle; MatMult applies U plus strict(U)ᵀ so storage
-is halved for symmetric multi-DOF problems) and mpisbaij.c. TPU layout:
+is halved for symmetric multi-DOF problems) and mpisbaij.c. Device layout:
 block-ELL over block rows (like BAIJ, mat/bsr.py); the transpose
 contribution is a scatter-add (segment-sum) over the stored slots.
 """

@@ -1,42 +1,40 @@
-"""SellMat — Pallas irregular-SpMV format (sliced-ELL, source-slice passes).
+"""SellMat — sliced-ELL sparse format with plan-chosen source slices.
 
 The reference's universal SpMV is CSR MatMult_SeqAIJ
 (src/mat/impls/aij/seq/aij.c:1173): one indirect load per nonzero.
-XLA's per-element gather runs at ~1.3e8 elem/s on TPU (the round-2
-"irregular fallback" gap); the TPU's actual fast indirection is the
-VPU dynamic-gather instruction — `take_along_axis(src, idx, axis=1)`
-on a [G, 128] tile measured at ~9e10 elem/s, 700x faster, but it can
-only pick WITHIN each source row.
+SellMat is a SELL-C-sigma descendant whose rows are grouped by the
+x-window they read instead of by row length:
 
-SellMat restructures SpMV so every indirection is exactly that
-instruction (a SELL-C-sigma descendant with plan-chosen "source
-slices" instead of row-length sorting):
-
-  * rows are tiled in blocks of C = G*128 (g = sublane group,
-    l = lane); each tile owns a contiguous x-window whose span RCM
-    bounds (plan-time `mat/order` — the same locality lever the
-    reference pulls for bandwidth reduction);
+  * rows are tiled in blocks of C = G*128 (g = sub-row, l = lane);
+    each tile owns a contiguous x-window whose span RCM bounds
+    (plan-time `mat/order` — the same locality lever the reference
+    pulls for bandwidth reduction);
   * a nonzero (row = (g, l), col = X) needs x[X], which lives in
     window row q + g for the UNIQUE q = row_of(X) - winstart - g;
     nonzeros are bucketed by q;
-  * a PASS = (one bucket q, at most one slot per row): the kernel
-    dynamic-slices V = win[q : q+G] and one dynamic-gather
-    out[g, l] = V[g, idx[g, l]] fetches G*128 operands — zero waste;
-  * y[g, l] = sum over passes of vals * out — no scatter anywhere.
+  * a PASS = (one bucket q, at most one slot per row) holds G*128
+    slots whose operands all come from window rows q .. q+G-1;
+  * y[g, l] = sum over passes of vals * x[slot column].
+
+`mult` is plain jax.numpy over this layout: each slot's column is
+rebuilt from winstart, qs, g and the int8 in-chunk position, x is
+gathered once per slot and the pass sum is one reduction, which XLA
+fuses into a single gather-multiply-reduce. `multT` scatter-adds
+vals * r onto the same columns.
 
 Storage per pass slot: 4B val + 1B idx (position within a 128-wide
 chunk); pass count P = sum over buckets of the max per-row count
 ("slop"; >= the ELL width K, near K for banded/clustered sparsity —
-the plan reports it). Matrices whose window span exceeds the VMEM cap
-or whose slop explodes (adversarially random) should stay on the ELL
-gather path — `sell_viable` checks this.
+the plan reports it). Matrices whose window span exceeds the cap or
+whose slop explodes (adversarially random) stay on the ELL path —
+`sell_viable` checks this.
 
-fp32 only (the performance path); fp64 callers use ELL/Band formats.
+fp32 only; fp64 callers use ELL/Band formats.
 """
 
 from __future__ import annotations
 
-import functools
+import dataclasses
 from dataclasses import dataclass, field
 
 import jax
@@ -63,7 +61,6 @@ class SellMat:
     G: int = field(metadata=dict(static=True), default=16)
     S: int = field(metadata=dict(static=True), default=512)  # window rows
     Lp: int = field(metadata=dict(static=True), default=0)   # padded x rows
-    interpret: bool = field(metadata=dict(static=True), default=False)
     # addressing mode: "diag" buckets nonzeros by q = chunk(col) - g
     # (translation-aligned square operators — every pass serves G
     # sub-rows from G consecutive window rows); "chunk" buckets by the
@@ -84,14 +81,21 @@ class SellMat:
     def npass(self):
         return self.vals.shape[1]
 
+    def _slot_cols(self) -> jax.Array:
+        """Flat index of every slot's operand in the padded x buffer
+        (x sits at offset G*128): window start + pass slice row (+ the
+        sub-row g in diag mode), times 128, plus the in-chunk position."""
+        row = self.winstart[:, None, None, None] + self.qs[:, :, None, None]
+        if self.mode == "diag":
+            row = row + jnp.arange(self.G, dtype=jnp.int32)[:, None]
+        return row * 128 + self.idx.astype(jnp.int32)
+
     def mult(self, x: jax.Array) -> jax.Array:
         n = self.shape[0]
         xp = jnp.zeros((self.Lp * 128,), self.dtype)
         xp = jax.lax.dynamic_update_slice(
             xp, x.reshape(-1).astype(self.dtype), (self.G * 128,))
-        y = _sell_spmv(self.vals, self.idx, self.qs, self.winstart,
-                       xp.reshape(self.Lp, 128), G=self.G, S=self.S,
-                       interpret=self.interpret, mode=self.mode)
+        y = jnp.sum(self.vals * xp[self._slot_cols()], axis=1)
         return y.reshape(-1)[:n]
 
     def mult_add(self, x, y):
@@ -100,166 +104,24 @@ class SellMat:
     def multT(self, r: jax.Array) -> jax.Array:
         """y = Aᵀ r for chunk-mode operators (the MG restriction
         R = Pᵀ run through P's OWN layout — MatMultTranspose on the
-        stored prolongator, mg.c): per tile/pass, a weighted one-hot
-        reduction scatters each row's contribution into its window
-        chunk; per-tile partial windows are combined with static adds.
-        No scatter instructions anywhere (Mosaic has none) — the
-        indirection is an idx==iota compare on the VPU."""
+        stored prolongator, mg.c): a scatter-add of vals * r onto the
+        same slot columns `mult` gathers from."""
         if self.mode != "chunk":
             raise NotImplementedError("SellMat.multT: chunk mode only")
         n, m = self.shape
-        C = self.G * 128
-        rp = jnp.zeros((self.nt * C,), self.dtype)
+        rp = jnp.zeros((self.nt * self.G * 128,), self.dtype)
         rp = jax.lax.dynamic_update_slice(
             rp, r.reshape(-1).astype(self.dtype), (0,))
-        wins = _sell_spmvT_chunk(self.vals, self.idx, self.qs,
-                                 rp.reshape(self.nt, self.G, 128),
-                                 S=self.S, interpret=self.interpret)
-        y = jnp.zeros((self.Lp, 128), self.dtype)
-        for t in range(self.nt):
-            ws = self.winstart[t]
-            cur = jax.lax.dynamic_slice(y, (ws, jnp.int32(0)),
-                                        (self.S, 128))
-            y = jax.lax.dynamic_update_slice(y, cur + wins[t],
-                                             (ws, jnp.int32(0)))
-        return y.reshape(-1)[self.G * 128: self.G * 128 + m]
+        contrib = self.vals * rp.reshape(self.nt, 1, self.G, 128)
+        y = jnp.zeros((self.Lp * 128,), self.dtype)
+        y = y.at[self._slot_cols().reshape(-1)].add(contrib.reshape(-1))
+        return y[self.G * 128: self.G * 128 + m]
 
     def diagonal(self) -> jax.Array:
         return self.diag
 
     def flops_per_mult(self) -> float:
         return 2.0 * self.nnz - self.shape[0]
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("G", "S", "interpret", "mode"))
-def _sell_spmv(vals, idx, qs, winstart, xp, *, G, S, interpret,
-               mode="diag"):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    nt, P = vals.shape[:2]
-    # pass-chunking keeps the streamed vals/idx blocks within VMEM;
-    # the grid runs (t, pc) sequentially so the window scratch loaded
-    # at pc == 0 persists across a tile's pass chunks
-    PC = P
-    while PC * G * 128 * 5 * 2 > 6 * 1024 * 1024:   # ~6MB double-buffered
-        PC = -(-PC // 2)
-    npc = -(-P // PC)
-    Ppad = npc * PC
-    if Ppad != P:
-        pad = ((0, 0), (0, Ppad - P), (0, 0), (0, 0))
-        vals = jnp.pad(vals, pad)
-        idx = jnp.pad(idx, pad)
-        qs = jnp.pad(qs, ((0, 0), (0, Ppad - P)))
-
-    def kernel(winstart_ref, qs_ref, vals_ref, idx_ref, x_hbm, o_ref,
-               win, sem):
-        t = pl.program_id(0)
-        pc = pl.program_id(1)
-
-        @pl.when(pc == 0)
-        def _():
-            dma = pltpu.make_async_copy(
-                x_hbm.at[pl.ds(winstart_ref[t], S), :], win, sem)
-            dma.start()
-            dma.wait()
-
-        acc = jnp.zeros((G, 128), jnp.float32)
-        for p in range(PC):
-            if mode == "diag":
-                V = win[pl.ds(qs_ref[t, pc * PC + p], G), :]
-            else:       # one chunk row broadcast to all G sub-rows
-                V = jnp.broadcast_to(
-                    win[pl.ds(qs_ref[t, pc * PC + p], 1), :], (G, 128))
-            picked = jnp.take_along_axis(
-                V, idx_ref[0, p].astype(jnp.int32), axis=1)
-            acc = acc + vals_ref[0, p] * picked
-
-        @pl.when(pc == 0)
-        def _():
-            o_ref[0] = acc
-
-        @pl.when(pc != 0)
-        def _():
-            o_ref[0] = o_ref[0] + acc
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(nt, npc),
-        in_specs=[
-            pl.BlockSpec((1, PC, G, 128),
-                         lambda t, pc, ws, q: (t, pc, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, PC, G, 128),
-                         lambda t, pc, ws, q: (t, pc, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((1, G, 128), lambda t, pc, ws, q: (t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((S, 128), jnp.float32),
-                        pltpu.SemaphoreType.DMA(())],
-    )
-
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((nt, G, 128), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(winstart, qs, vals, idx, xp)
-
-
-@functools.partial(jax.jit, static_argnames=("S", "interpret"))
-def _sell_spmvT_chunk(vals, idx, qs, rt, *, S, interpret):
-    """Per-tile transpose windows [nt, S, 128] of a chunk-mode SELL."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    nt, P, G, _ = vals.shape
-
-    def kernel(qs_ref, vals_ref, idx_ref, r_ref, o_ref):
-        t = pl.program_id(0)
-        iota = jax.lax.broadcasted_iota(jnp.int32, (G, 128, 128), 2)
-        o_ref[0] = jnp.zeros((S, 128), jnp.float32)
-
-        # fori_loop, NOT an unrolled Python loop: Mosaic gives every
-        # unrolled pass its own live [G,128,128] one-hot temporary,
-        # which blows the 16 MB scoped-vmem stack for P >~ 25 (the
-        # ex56 RBM prolongator packs at P = 132)
-        def pass_body(p, _):
-            contrib = vals_ref[0, pl.ds(p, 1)][0] * r_ref[0]  # [G,128]
-            oh = (idx_ref[0, pl.ds(p, 1)][0].astype(jnp.int32)
-                  [:, :, None] == iota).astype(jnp.float32)
-            row = jnp.sum(contrib[:, :, None] * oh,
-                          axis=(0, 1))[None, :]           # [1, 128]
-            q = qs_ref[t, p]
-            cur = o_ref[0, pl.ds(q, 1), :]
-            o_ref[0, pl.ds(q, 1), :] = cur + row
-            return 0
-
-        jax.lax.fori_loop(0, P, pass_body, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nt,),
-        in_specs=[
-            pl.BlockSpec((1, P, G, 128), lambda t, q: (t, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P, G, 128), lambda t, q: (t, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, G, 128), lambda t, q: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, S, 128), lambda t, q: (t, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((nt, S, 128), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(qs, vals, idx, rt)
 
 
 def _plan(A: sp.csr_matrix, G: int, mode: str = "diag"):
@@ -276,9 +138,7 @@ def _plan(A: sp.csr_matrix, G: int, mode: str = "diag"):
     g = (rows % C) // 128
     lane = rows % 128
 
-    # per-tile window start (8*128-aligned so the HBM->VMEM window DMA
-    # starts on a sublane boundary — unaligned row offsets FAULT the
-    # v5e DMA engine, see scripts/probe_sell_bisect.py step e)
+    # per-tile window start, aligned down to 8 chunks (1024 columns)
     wmin = np.full(nt, 2**62, np.int64)
     if len(cols):
         np.minimum.at(wmin, t, cols)
@@ -328,8 +188,7 @@ def _plan(A: sp.csr_matrix, G: int, mode: str = "diag"):
     pass_of = (bucket_pass0[b_id] + rank) if nb else np.zeros(0, np.int64)
 
     # window rows: diag reads reach q + g, chunk reads reach q;
-    # slices need qs_pass + G <= S. S must be a sublane multiple (8) —
-    # odd row counts fault the DMA.
+    # slices need qs_pass + G <= S, rounded up to a multiple of 8.
     qg_max = int((qs_ + (g[order] if mode == "diag" else 0)).max()) \
         if len(order) else 0
     q_max = int(qs_.max()) if len(order) else 0
@@ -408,28 +267,24 @@ def sell_pack(A, G: int = 16, max_span_rows: int = 8192,
                  Lp=Lp, mode=mode))
 
 
-def sell_from_scipy(A, G: int = 16, interpret: bool = None,
-                    max_span_rows: int = 8192,
+def sell_from_scipy(A, G: int = 16, max_span_rows: int = 8192,
                     force: tuple = None, mode: str = "diag") -> SellMat:
     """Build a SellMat (fp32). Raises ValueError when the window span
-    exceeds the VMEM cap — callers should RCM-order first and fall
-    back to ELL when not viable. See sell_pack for `force`."""
+    exceeds the cap — callers should RCM-order first and fall back to
+    ELL when not viable. See sell_pack for `force`."""
     arrs, st = sell_pack(A, G=G, max_span_rows=max_span_rows,
                          force=force, mode=mode)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     return SellMat(jnp.asarray(arrs["vals"]), jnp.asarray(arrs["idx"]),
                    jnp.asarray(arrs["qs"]),
                    jnp.asarray(arrs["winstart"]),
                    jnp.asarray(arrs["diag"]), st["shape"], st["nnz"],
-                   st["G"], st["S"], st["Lp"], interpret, mode)
+                   st["G"], st["S"], st["Lp"], mode)
 
 
 # ---------------------------------------------------------------------------
 # frozen-pattern templates: jit-safe numeric refill
 # ---------------------------------------------------------------------------
-def sell_template(A, G: int = 16, interpret: bool = None,
-                  max_span_rows: int = 8192):
+def sell_template(A, G: int = 16, max_span_rows: int = 8192):
     """(template SellMat, pos, diag_idx): the symbolic side of the
     format, built once from a PATTERN — `sell_fill(tmpl, pos, diag_idx,
     data)` then rebuilds the numeric matrix INSIDE jit from a
@@ -445,8 +300,7 @@ def sell_template(A, G: int = 16, interpret: bool = None,
     A.sum_duplicates()
     A.sort_indices()
     n = A.shape[0]
-    tmpl = sell_from_scipy(A, G=G, interpret=interpret,
-                           max_span_rows=max_span_rows)
+    tmpl = sell_from_scipy(A, G=G, max_span_rows=max_span_rows)
     m = _plan(A, G)
     nt, P = m["nt"], m["P"]
     # invert the plan's (t, q, row, col) lexsort: order[k] = CSR entry
@@ -479,6 +333,5 @@ def sell_fill(tmpl: SellMat, pos, diag_idx, data) -> SellMat:
     flat = flat.at[pos].set(data.astype(jnp.float32))
     dpad = jnp.concatenate([data.astype(jnp.float32),
                             jnp.zeros((1,), jnp.float32)])
-    return SellMat(flat.reshape(tmpl.vals.shape), tmpl.idx, tmpl.qs,
-                   tmpl.winstart, dpad[diag_idx], tmpl.shape, tmpl.nnz,
-                   tmpl.G, tmpl.S, tmpl.Lp, tmpl.interpret)
+    return dataclasses.replace(tmpl, vals=flat.reshape(tmpl.vals.shape),
+                               diag=dpad[diag_idx])

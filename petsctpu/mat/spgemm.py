@@ -5,7 +5,7 @@ matmatmult.c:29 — symbolic estimates fill once, numeric re-runs cheaply
 when values change) and MatPtAP (src/mat/impls/aij/seq/matptap.c:19,44)
 powering GAMG's coarse operators (gamg.c:156).
 
-TPU design: the same symbolic/numeric split, but sharper — the
+Device design: the same symbolic/numeric split, but sharper — the
 SYMBOLIC phase runs on host (scipy computes the product pattern and a
 flat contribution plan), and the NUMERIC phase is a pure jit-safe
 segment-sum over device value arrays. That makes Galerkin coarse
@@ -84,9 +84,8 @@ def _segment_arange(starts, lengths):
 
 def _size_class_tables(c_idx, c_nnz, *index_streams):
     """Group contributions by output slot into pow2-width dense
-    tables: TPU scatter-add/segment-sum runs at ~1e8/s while gathers
-    + dense axis reductions run at ~5e10/s, so the numeric product is
-    restructured as gather → [n_cls, W] multiply → sum(axis=1) →
+    tables, so the numeric product is a scatter-free
+    gather → [n_cls, W] multiply → sum(axis=1) →
     one inverse-permutation gather. Returns
     (classes=[(W, padded index arrays per stream)], inv)."""
     order = np.argsort(c_idx, kind="stable")
@@ -123,8 +122,7 @@ class SpGEMMPlan:
 
     Contributions are grouped by output slot into pow2-width dense
     tables at plan time (see _size_class_tables) so the numeric phase
-    is pure gathers + dense reductions — no scatter (the TPU scatter
-    path is ~500x slower than its gather path at this scale).
+    is pure gathers + dense reductions — no scatter.
     `template` holds C's ELL structure; `ell_pos` maps CSR data order
     to flat ELL slots. Padded slots index a_nnz/b_nnz (an appended
     zero)."""

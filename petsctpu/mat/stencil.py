@@ -1,13 +1,13 @@
-"""StencilMat — grid-structured (DIA-style) matrices, the TPU fast path.
+"""StencilMat — grid-structured (DIA-style) matrices, the structured path.
 
 The reference's structured-grid operators (DMDA-built matrices, the
-lap2d/ex45 benchmark family) are stored as general CSR there; on TPU a
-gather-based SpMV runs at <1% of HBM bandwidth while the same operator
-expressed as a stencil — per-offset coefficient arrays with pad+slice
-shifted reads — runs at the bandwidth roofline (measured 1800x faster
-on v5e). This format is the moral equivalent of the reference's
-AIJPERM/CRL "regularized" layouts (src/mat/impls/aij/seq/{csrperm,crl})
-taken to the TPU endpoint: no index arrays at all.
+lap2d/ex45 benchmark family) are stored as general CSR there; here the
+same operator is expressed as a stencil — per-offset coefficient
+arrays with pad+slice shifted reads, so an SpMV streams coefficients
+and reads x without any gather. This format is the moral equivalent of
+the reference's AIJPERM/CRL "regularized" layouts
+(src/mat/impls/aij/seq/{csrperm,crl}) taken to their endpoint: no
+index arrays at all.
 
 Layout: coeffs[d, *grid] for offsets[d] (grid-coordinate tuples).
 Row (i,j,..) of A has entry coeff_d[i,j,..] at column (i,j,..)+off_d.
@@ -91,12 +91,12 @@ class StencilMat:
     def mult(self, x: jax.Array) -> jax.Array:
         """Shape-preserving: a grid-shaped x returns a grid-shaped y.
 
-        This matters for performance, not convenience: XLA lays a flat
-        [m·n] carry and a [m, n] grid operand out with different HBM
-        tilings, so a solver iterating on flat vectors pays a physical
-        relayout copy (~2n extra traffic, measured ~25% of SpMV time on
-        v5e) at every mult. Driving the solve with grid-shaped vectors
-        keeps the whole Krylov iteration in the grid layout."""
+        This can matter for performance, not only convenience: where
+        XLA lays a flat [m·n] carry and a [m, n] grid operand out with
+        different memory tilings, a solver iterating on flat vectors
+        pays a relayout copy at every mult. Driving the solve with
+        grid-shaped vectors keeps the whole Krylov iteration in the
+        grid layout."""
         xg = x.reshape(self.grid)
         y = jnp.zeros_like(xg)
         for d, off in enumerate(self.offsets):
@@ -242,7 +242,7 @@ def galerkin_coarsen(A: StencilMat, P, coarse_grid: tuple) -> StencilMat:
     The reference builds coarse MG operators with host SpGEMM
     (MatPtAP, src/mat/impls/aij/seq/matptap.c) because its data lives
     in host CSR. Here both A (stencil coefficient planes) and P
-    (matrix-free Q1) live in HBM, so the TPU-native formulation is
+    (matrix-free Q1) live on the device, so the device formulation is
     comb probing: the coarse operator is again a stencil with per-axis
     reach rc (see coarse_reach), hence probing with combs of coarse
     unit vectors spaced s = 2·rc+1 apart resolves EVERY coarse matrix

@@ -48,7 +48,7 @@ def bratu_residual_sharded(da: DA, nshards: int, mloc: int = None,
     (the reference's DMDA x-partition, ex5.c runs on an arbitrary
     DMDA decomposition) is sharded over `axis`; each evaluation
     exchanges one boundary row with each neighbor shard via
-    `lax.ppermute` — the TPU form of the DMGlobalToLocal ghost scatter
+    `lax.ppermute` — the device form of the DMGlobalToLocal ghost scatter
     the reference performs before FormFunctionLocal (dm.c:1620).
 
     Rows past the true grid (leading-axis padding to nshards*mloc)

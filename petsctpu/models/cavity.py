@@ -92,9 +92,9 @@ def cavity_residual_sharded(mx: int, my: int, nshards: int,
     """Per-shard ex19 residual for shard_map: the j (my) axis is
     sharded; each evaluation exchanges one full (mx, 4) boundary row
     with each neighbor shard via `lax.ppermute` — the DMDA ghost
-    scatter of the reference's distributed ex19 run (BASELINE config
-    5). Boundary formulas are applied by global-row masks in the
-    reference's bottom/top/left/right order (later edges own the
+    scatter of the reference's distributed ex19 run. Boundary formulas
+    are applied by global-row masks in the reference's
+    bottom/top/left/right order (later edges own the
     corners, ex19.c FormFunctionLocal); rows past the true grid get
     identity residual. Returns (F_local, padded_grid)."""
     if lidvelocity is None:

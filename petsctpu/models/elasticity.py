@@ -86,18 +86,9 @@ def elasticity_2d(mx: int, my: int, E=1.0, nu=0.3, traction=-0.1):
     return A, coords, b[free]
 
 
-def ex55_system(ne: int = 4, soft_alpha: float = 1e-3, dtype=np.float64):
-    """ksp ex55: 2-D Q1 ELASTICITY (2 dof/node, interleaved) on an
-    ne×ne element grid with a soft circular inclusion and the
-    bottom-row BC element (ex55.c:30-200; the hardwired 8×8 element —
-    the data-file override is dead code since assembly rescales from
-    DD1). Load h² in the x-direction on all non-bottom nodes. Returns
-    (A, b, coords[nnode,2])."""
-    import scipy.sparse as sp
-
-    n1 = ne + 1
-    nn = n1 * n1
-    h = 1.0 / ne
+def ex55_element_blocks():
+    """ex55's hardwired 8x8 Q1 element DD1 and the bottom-row BC
+    element DD2 (rows/cols < 4 diagonalized x0.1)."""
     t = 1.0 / 3.0
     DD1 = np.array([
         [8 / 15, .2, -t, 0.0, -4 / 15, -.2, 1 / 15, 0.0],
@@ -113,22 +104,37 @@ def ex55_system(ne: int = 4, soft_alpha: float = 1e-3, dtype=np.float64):
         for j in range(8):
             if i < 4 or j < 4:
                 DD2[i, j] = 0.1 * DD1[i, j] if i == j else 0.0
-    rows, cols, vals = [], [], []
-    for Ii in range(nn):
-        j, i = Ii // n1, Ii % n1
-        if i < ne and j < ne:
-            x, y = h * i, h * j
-            nodes = np.array([Ii, Ii + 1, Ii + n1 + 1, Ii + n1])
-            dof = np.stack([2 * nodes, 2 * nodes + 1], 1).reshape(-1)
-            radius = np.sqrt((x - .5 + h / 2) ** 2
-                             + (y - .5 + h / 2) ** 2)
-            alpha = soft_alpha if radius < 0.25 else 1.0
-            DD = alpha * (DD1 if j > 0 else DD2)
-            rows.append(np.repeat(dof, 8))
-            cols.append(np.tile(dof, 8))
-            vals.append(DD.reshape(-1))
-    A = sp.csr_matrix((np.concatenate(vals),
-                       (np.concatenate(rows), np.concatenate(cols))),
+    return DD1, DD2
+
+
+def ex55_system(ne: int = 4, soft_alpha: float = 1e-3, dtype=np.float64):
+    """ksp ex55: 2-D Q1 ELASTICITY (2 dof/node, interleaved) on an
+    ne×ne element grid with a soft circular inclusion and the
+    bottom-row BC element (ex55.c:30-200; the hardwired 8×8 element —
+    the data-file override is dead code since assembly rescales from
+    DD1). Load h² in the x-direction on all non-bottom nodes. Returns
+    (A, b, coords[nnode,2])."""
+    import scipy.sparse as sp
+
+    n1 = ne + 1
+    nn = n1 * n1
+    h = 1.0 / ne
+    DD1, DD2 = ex55_element_blocks()
+    # one Q1 element per lower-left node (i, j) with i, j < ne, in node
+    # order; each contributes its 8x8 block at its 8 interleaved dofs
+    Ii = np.arange(nn)
+    j, i = Ii // n1, Ii % n1
+    el = (i < ne) & (j < ne)
+    Ii, i, j = Ii[el], i[el], j[el]
+    nodes = np.stack([Ii, Ii + 1, Ii + n1 + 1, Ii + n1], axis=1)
+    dof = np.stack([2 * nodes, 2 * nodes + 1], axis=2).reshape(-1, 8)
+    x, y = h * i, h * j
+    radius = np.sqrt((x - .5 + h / 2) ** 2 + (y - .5 + h / 2) ** 2)
+    alpha = np.where(radius < 0.25, soft_alpha, 1.0)
+    DD = alpha[:, None, None] * np.where((j > 0)[:, None, None], DD1, DD2)
+    rows = np.broadcast_to(dof[:, :, None], DD.shape).reshape(-1)
+    cols = np.broadcast_to(dof[:, None, :], DD.shape).reshape(-1)
+    A = sp.csr_matrix((DD.reshape(-1), (rows, cols)),
                       shape=(2 * nn, 2 * nn)).astype(dtype)
     b = np.zeros(2 * nn, dtype)
     jj = np.arange(nn) // n1

@@ -1,9 +1,9 @@
 """ctypes loader for the native plan-time kernels (native/*.cpp).
 
-Builds lazily with g++ on first import if the shared library is
-missing (a ~1 s compile); falls back to pure-Python implementations
-when no toolchain is available. All entry points mirror numpy-CSR
-signatures; see native/petsctpu_native.cpp for the C ABI.
+Builds lazily with g++ on first use when the shared library is missing
+or older than its source (a ~1 s compile); falls back to pure-Python
+implementations when no toolchain is available. All entry points
+mirror numpy-CSR signatures; see native/petsctpu_native.cpp for the C ABI.
 """
 
 from __future__ import annotations
@@ -22,20 +22,31 @@ _lib = None
 
 
 def _build() -> bool:
+    # build beside the target and rename into place, so concurrent
+    # processes never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", _SO,
+            ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", tmp,
              _SRC], check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return True
     except Exception:
         return False
+
+
+def _stale() -> bool:
+    if not os.path.exists(_SRC):
+        return False
+    return (not os.path.exists(_SO)
+            or os.path.getmtime(_SRC) > os.path.getmtime(_SO))
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_SO) and os.path.exists(_SRC):
+    if _stale():
         _build()
     if os.path.exists(_SO):
         try:

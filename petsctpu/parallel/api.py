@@ -3,7 +3,7 @@
 The same solver code that runs serially runs here inside
 `shard_map` over a 1-D device mesh; collectives appear only through
 vec.ops (psum) and ShardedAIJ.ghosts (all_to_all/all_gather). This is
-the TPU equivalent of the reference running the identical source
+the device equivalent of the reference running the identical source
 under real MPI vs mpiuni (SURVEY.md §2.10 P1-P4).
 """
 
@@ -29,6 +29,25 @@ def shard_vector(mesh: Mesh, axis: str, x: np.ndarray, layout: Layout):
     """Place a padded global vector row-sharded on the mesh."""
     xp = layout.pad_vector(np.asarray(x))
     return jax.device_put(jnp.asarray(xp), NamedSharding(mesh, P(axis)))
+
+
+def place_on_mesh(mesh: Mesh, tree, specs):
+    """device_put every leaf of `tree` with NamedSharding(mesh, spec)
+    for its PartitionSpec in `specs` (a spec pytree of the same
+    structure, as `shard_map` takes). Stacked operators and PCs are
+    built on one device; this spreads them over the mesh once, and is
+    a no-op for leaves already placed."""
+    if tree is None:
+        return None
+    shardings = jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                             is_leaf=lambda s: isinstance(s, P))
+    return jax.device_put(tree, shardings)
+
+
+def operator_specs(A, axis: str):
+    """Spec pytree of a stacked sharded operator: every leaf splits its
+    leading shard axis over `axis`."""
+    return jax.tree.map(lambda _: P(axis), A)
 
 
 def unshard_vector(x, layout: Layout) -> np.ndarray:
@@ -144,8 +163,10 @@ def par_ksp_solve(mesh: Mesh, A: ShardedAIJ, b, x0=None, pc=None,
         b = jax.device_put(jnp.asarray(bp), NamedSharding(mesh, P(axis)))
     if x0 is None:
         x0 = jnp.zeros_like(b)
-    run = _compiled_par(cfg.ksp_type, cfg, axis, _MeshKey(mesh),
-                        _pc_specs(pc, axis))
+    pc_spec = _pc_specs(pc, axis)
+    A = place_on_mesh(mesh, A, operator_specs(A, axis))
+    pc = place_on_mesh(mesh, pc, pc_spec)
+    run = _compiled_par(cfg.ksp_type, cfg, axis, _MeshKey(mesh), pc_spec)
     return run(A, b, x0, pc)
 
 

@@ -1,12 +1,13 @@
 """Two-level (DCN-aware) halo plans: hierarchical MPIAIJ for multi-host.
 
 The reference's network model is flat MPI: VecScatter sends one message
-per neighbor rank regardless of where it lives (vpscat.c). On a TPU
-pod-of-slices the fabric is two-level — fast ICI within a slice, slow
-DCN between slices — and the efficient shape is the hierarchical plan
-PETSc approximates with PCHMPI / GAMG proc-agglomeration (SURVEY §5.7):
-stage intra-slice traffic over ICI and cross DCN only with aggregated,
-rail-aligned messages.
+per neighbor rank regardless of where it lives (vpscat.c). On a
+multi-host cluster the fabric is two-level — a fast link within a host
+("ici" axis), a slower network between hosts ("dcn" axis) — and the
+efficient shape is the hierarchical plan PETSc approximates with
+PCHMPI / GAMG proc-agglomeration (SURVEY §5.7): stage intra-host
+traffic first and cross hosts only with aggregated, rail-aligned
+messages.
 
 Mesh: ("dcn", "ici") of shape (H, C); global shard p = h·C + c
 (row-major, matching PartitionSpec(("dcn","ici")) on a 1-D row axis).

@@ -6,7 +6,7 @@ uses the same scatter/local/scatter/offdiag overlap as MPIAIJ but
 moves bs-sized value blocks). Here the halo plan works at BLOCK
 granularity: each exchanged unit is one bs-vector, so multi-DOF
 problems (elasticity bs=3) move their natural quanta and the SpMV
-kernels are batched bs×bs einsums on the VPU/MXU.
+kernels are batched bs×bs einsums.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Host-side communication planning: partition + ghost discovery.
 
-The TPU-native replacement for the reference's VecScatterCreate
+The device-side replacement for the reference's VecScatterCreate
 analysis (src/vec/vec/utils/vscat.c:920) and MatSetUpMultiply_MPIAIJ
 garray/lvec construction (src/mat/impls/aij/mpi/mmaij.c:8): given a
 global sparse matrix and a row Layout, compute per-shard

@@ -6,7 +6,7 @@ columns) and an off-diagonal block B with compressed ghost columns
 (garray), plus a halo plan. The reference's scatter-begin / local-mult
 / scatter-end / offdiag-multadd overlap (mpiaij.c:1111-1114) maps to:
 issue the collective, compute the diag SpMV, then consume the ghosts —
-XLA schedules the collective asynchronously over ICI.
+XLA schedules the collective asynchronously.
 
 Leaves carry a leading shard axis [P, ...] so `shard_map(in_specs=
 P(axis))` splits them; methods run INSIDE shard_map on the [1, ...]
@@ -55,9 +55,9 @@ class ShardedAIJ:
     # "ppermute" style's unrolled neighbor shifts
     offsets: tuple = field(metadata=dict(static=True), default=())
     # optional stacked SellMat over the diag blocks (fmt="sell"): the
-    # local SpMV of every distributed solve then runs the Pallas
-    # lane-gather kernel instead of the ELL gather fallback — the
-    # MatMult_SeqAIJ-inside-MatMult_MPIAIJ fast path (mpiaij.c:1102)
+    # local SpMV of every distributed solve then runs SellMat instead
+    # of the ELL gather — the MatMult_SeqAIJ-inside-MatMult_MPIAIJ
+    # path (mpiaij.c:1102)
     diag_sell: Any = None
 
     # ---- local (inside shard_map) view --------------------------------
@@ -215,17 +215,14 @@ def sharded_aij_from_scipy(A, nshards: int, dtype=None,
         # pad entries (val 0) keep col 0 — harmless; real ghost slots < gmax
         oc[p, :, :], ov[p] = c, v.astype(dtype)
 
-    # fmt="sell"/"auto": local diag blocks through the Pallas SELL
-    # kernel (stacked per-shard plans with common static dims so the
-    # leading shard axis splits under shard_map); all-or-nothing —
-    # every block must be viable, else the ELL gather route stands
+    # fmt="sell": local diag blocks through SellMat (stacked per-shard
+    # plans with common static dims so the leading shard axis splits
+    # under shard_map); every block must be viable
     diag_sell = None
-    want_sell = (fmt == "sell"
-                 or (fmt == "auto" and jax.default_backend() == "tpu"))
     if fmt == "sell" and np.dtype(dtype) != np.float32:
-        raise ValueError("fmt='sell' needs dtype=float32 (the Pallas "
-                         "kernel's performance dtype)")
-    if want_sell and np.dtype(dtype) == np.float32:
+        raise ValueError("fmt='sell' needs dtype=float32 (SellMat's "
+                         "dtype)")
+    if fmt == "sell":
         from petsctpu.mat.sell import (sell_from_scipy, sell_plan_stats,
                                        sell_viable)
         import scipy.sparse as sp2
@@ -250,9 +247,9 @@ def sharded_aij_from_scipy(A, nshards: int, dtype=None,
             nz = max(int(D.nnz) for D in blocks)
             mats = [dataclasses.replace(M, nnz=nz) for M in mats]
             diag_sell = jax.tree.map(lambda *ls: jnp.stack(ls), *mats)
-        elif fmt == "sell":
+        else:
             raise ValueError("fmt='sell': a diag block is not "
-                             "SELL-viable; use fmt='auto' or 'ell'")
+                             "SELL-viable; use fmt='ell'")
 
     if style == "auto":
         # few ring offsets (banded/partitioned-with-locality rows) ->

@@ -7,9 +7,9 @@ assembling the Jacobian by FD coloring (SNESDefaultComputeJacobianColor
 src/snes/snesj2.c:36 -> MatFDColoringApply src/mat/matfd/fdmatrix.c)
 where every perturbed residual evaluation carries its own halo
 exchange, and solving J dx = F with a distributed KSP + PC
-(BASELINE.json config 5: Newton-Krylov with GMRES+GAMG, ex19-style).
+(Newton-Krylov with GMRES+GAMG, ex19-style).
 
-TPU mapping: the axis-parametric `snes_solve` / `ts_solve` (ONE
+Device mapping: the axis-parametric `snes_solve` / `ts_solve` (ONE
 `lax.while_loop` program each) runs verbatim INSIDE `shard_map` over
 the device mesh — residual halos are `lax.ppermute`, reductions are
 `psum`, and the colored-FD assembly emits a per-shard local

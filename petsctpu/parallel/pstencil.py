@@ -1,10 +1,10 @@
 """Sharded stencil matrices: structured-grid SPMD with ppermute halos.
 
-This is the TPU analog of the reference's DMDA ghost exchange
+This is the device analog of the reference's DMDA ghost exchange
 (src/dm/impls/da/da2.c:664 — ghost scatters sized by stencil width):
 the grid's slowest axis is sharded over the mesh; each apply exchanges
 `w` boundary rows with the two neighbor shards via `lax.ppermute`
-(pure ICI neighbor traffic, no all-to-all), then applies the stencil
+(neighbor traffic only, no all-to-all), then applies the stencil
 with pad+slice shifts exactly like the serial StencilMat. Unmatched
 ppermute partners (grid boundary) receive zeros — which is precisely
 the out-of-grid value.

@@ -2,7 +2,7 @@
 
 Reference: PetscSubcomm (src/sys/objects/subcomm.c) and its consumers
 PCREDUNDANT (gather to k subcomms, each solves redundantly) and PCHMPI.
-TPU equivalent: a 2-axis device mesh ("sub", "rows") — collectives
+Device equivalent: a 2-axis device mesh ("sub", "rows") — collectives
 that name only "rows" span a SUBGROUP of devices, which IS the
 subcommunicator. A k-group nested solve is then just the ordinary
 sharded solver run under a 2-axis shard_map with the extra leading

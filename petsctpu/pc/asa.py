@@ -13,7 +13,7 @@ the near-null candidate vectors it needs instead of assuming them:
 
 Setup (host, numpy/scipy): aggregation + QR + Galerkin products and a
 host Jacobi V-cycle for the self-test. The returned PC applies on
-device via the same MGPC machinery as GAMG (MXU SpMV smoothers).
+device via the same MGPC machinery as GAMG.
 """
 
 from __future__ import annotations

@@ -52,7 +52,7 @@ class ASMPC:
     use_perm: bool = field(metadata=dict(static=True), default=False)
     # zero-overlap equal contiguous blocks (the bjacobi shape): the
     # subdomain gather/scatter is a pure reshape — skips two n-sized
-    # arbitrary gathers per apply (~2 ms at 110k rows on v5e)
+    # arbitrary gathers per apply
     contiguous: bool = field(metadata=dict(static=True), default=False)
 
     def apply(self, x):
@@ -102,7 +102,7 @@ def make_asm(A_host, nblocks: int = 4, overlap: int = 1,
     fill/bandwidth-reducing ordering for the ILU factors (the
     reference's -sub_pc_factor_mat_ordering_type rcm). tri
     ("sub_pc_factor_tri_solve"): 'level' | 'band2' | 'auto' — auto
-    picks the MXU two-phase banded solve when the factors are fp32 and
+    picks the two-phase dense-tile banded solve when the factors are fp32 and
     band-viable (pc/parallel.band_solve_viable), else level-scheduled
     gathers; the reference's default MatSolve is its fast path
     (aijfact.c:603), so ours auto-selects too."""

@@ -20,7 +20,7 @@ constraint space:
   * apply (additive):  M⁻¹r = Rᴰᵀ (H + Ψ K_c⁻¹ Ψᵀ) Rᴰ r
     with Rᴰ the multiplicity-scaled restrictions.
 
-All per-subdomain solves are frozen dense operators — batched MXU
+All per-subdomain solves are frozen dense operators — batched dense
 matmuls at apply time; no host work after setup.
 """
 

@@ -4,7 +4,7 @@ coarse-level agglomeration.
 Reference pattern: GAMG's coarse-grid agglomeration onto fewer ranks
 (src/ksp/pc/impls/gamg/gamg.c:131-198 createLevel with
 -pc_gamg_repartition / proc reduction; cf. -pc_gamg_process_eq_limit)
-— tiny levels must not be latency-dominated. TPU mapping (SURVEY
+— tiny levels must not be latency-dominated. Device mapping (SURVEY
 §5.7): every level with more than `pc_mg_repl_size` true unknowns
 stays SHARDED over the mesh axis — Chebyshev smoothing uses only
 ppermute halo exchange (zero global collectives per sweep), and
@@ -257,8 +257,7 @@ def make_dist_gamg(A_host, nshards: int, dtype=None,
     cycles = 2 if opts.get_str("pc_mg_cycle_type", "v") == "w" else 1
     coarse_n = opts.get_int("pc_gamg_coarse_eq_limit", 64)
     # fmt like pc/mg.py: "sell" routes each sharded level's LOCAL diag
-    # SpMV through the Pallas kernel (ShardedAIJ.diag_sell); without it
-    # every distributed GAMG level smooths at the ELL gather rate
+    # SpMV through SellMat (ShardedAIJ.diag_sell); otherwise ELL
     fmt = opts.get_str("pc_gamg_mat_type", "auto")
 
     As, Ps = gamg_hierarchy(sp.csr_matrix(A_host).astype(dtype),
@@ -299,10 +298,10 @@ def make_dist_mg_hier(A_host, grid, H: int, C: int, dtype=None,
                       axes=("dcn", "ici")) -> DistMGPC:
     """Two-level-mesh hierarchy for (H hosts × C chips) ("dcn","ici")
     meshes — the full GAMG createLevel rank-reduction ladder
-    (gamg.c:174-198) mapped to the TPU fabric (SURVEY §5.7):
+    (gamg.c:174-198) mapped to a two-level fabric (SURVEY §5.7):
 
       * levels > `pc_mg_dcn_repl_size` unknowns: sharded over ALL H·C
-        shards (flattened tuple axis; halo ppermutes ride ICI except
+        shards (flattened tuple axis; halo ppermutes stay within a host except
         one boundary row per host pair);
       * then ONE cross-host all_gather per cycle re-shards onto the C
         chips of each host ("ici" axis, redundant across hosts);

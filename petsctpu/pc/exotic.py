@@ -13,12 +13,12 @@ Reference:
   * src/ksp/pc/impls/tfs — PCTFS: the Tufo-Fischer parallel direct
     solver; xxt.c computes a factor X with A⁻¹ = X·Xᵀ (inverse
     Cholesky) so a solve is two matrix products — no triangular
-    recurrences. That apply shape is ideal on TPU: both products run
-    on the MXU. The reference uses tfs for small coarse problems
+    recurrences. That apply shape suits an accelerator: both products
+    are dense matmuls. The reference uses tfs for small coarse problems
     (xxt.c header); same intended use here (e.g. the agglomerated
     coarse level of distmg).
 
-TPU design: all index analysis and local solves happen at plan time
+Design: all index analysis and local solves happen at plan time
 (host, scipy); the assembled P feeds the existing MGPC machinery, so
 PCExotic application is the standard smoother + Galerkin-coarse cycle.
 """
@@ -214,7 +214,7 @@ def make_exotic(A_host, grid, sub=(2, 2, 2), etype: str = "wirebasket",
 class TFSPC:
     """x = X·(Xᵀ·b) — the XXT solve (xxt.c do_xxt_solve): A⁻¹ = X Xᵀ.
 
-    On TPU both products are MXU matmuls; there is no triangular
+    Both products are dense matmuls; there is no triangular
     recurrence anywhere in the apply path."""
 
     X: jax.Array                     # n×n (or n×r) inverse factor

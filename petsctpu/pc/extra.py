@@ -151,7 +151,7 @@ def make_lsc(A00_host, B_host, dtype=None, shift: float = 1e-12):
 class SVDPC:
     """x ← V Σ⁺ Uᵀ x (src/ksp/pc/impls/svd/svd.c): exact for small /
     rank-deficient systems; zeroed singular values below rtol·σ_max.
-    Apply is two MXU matmuls."""
+    Apply is two dense matmuls."""
 
     U: jax.Array
     sinv: jax.Array
@@ -208,7 +208,7 @@ class _NormalEqPC:
 def make_eisenstat(A_host, omega: float = 1.0, dtype=None):
     """Eisenstat's trick (src/ksp/pc/impls/eisens/eisen.c) produces
     iterations IDENTICAL to SSOR preconditioning while halving the
-    per-iteration flops of the CPU triangular sweeps. On TPU the solve
+    per-iteration flops of the CPU triangular sweeps. Here the solve
     is level-scheduled and fused by XLA, so the framework keeps the
     SSOR formulation (same preconditioned operator, same convergence
     history) — this factory exists for option-level parity. For the

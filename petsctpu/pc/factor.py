@@ -61,9 +61,9 @@ def make_ilu(A_host, dtype=None, levels: int = 0,
              ordering: str = "natural", tri: str = "auto",
              drop_tol: float = 0.0, fill_factor: float = 10.0,
              transpose_solves: bool = False):
-    """tri: 'level' (level-scheduled SpTRSV) or 'band' (MXU-tiled
-    blocked back-substitution — far faster on TPU for banded/RCM-
-    ordered factors; see mat/factor.BandTRSVPlan).
+    """tri: 'level' (level-scheduled SpTRSV) or 'band' (dense-tile
+    blocked back-substitution for banded/RCM-ordered factors; see
+    mat/factor.BandTRSVPlan).
 
     drop_tol > 0 selects drop-tolerance ILU (ILUTP via SuperLU, the
     -pc_factor_drop_tolerance / MATSOLVERSUPERLU ILUT path of the
@@ -79,12 +79,11 @@ def make_ilu(A_host, dtype=None, levels: int = 0,
         Lstrict = sp.tril(L, k=-1, format="csr")
         if tri == "auto":
             # same auto policy as the ILU(k) path: band-viable fp32
-            # factors take the MXU route; band-inviable SMALL factors
-            # go dense (SuperLU ILUT fill reaches ~n bandwidth AND
-            # ~1000 dependency levels — the level-scheduled loop then
-            # runs ~1e9 scalar gathers in one program and trips the
-            # relay watchdog); only large band-inviable factors keep
-            # level scheduling
+            # factors take the banded route; band-inviable SMALL
+            # factors go dense (SuperLU ILUT fill reaches ~n bandwidth
+            # AND ~1000 dependency levels — the level-scheduled loop
+            # then runs ~1e9 scalar gathers in one program); only large
+            # band-inviable factors keep level scheduling
             from petsctpu.pc.parallel import band_solve_viable
             if band_solve_viable([Lstrict], [U], dtype):
                 tri = "band2"
@@ -211,7 +210,7 @@ def _make_ilu_natural(A_host, dtype=None, levels: int = 0,
         tri = "level"
     if tri == "auto":
         # the reference's default MatSolve is its fast path
-        # (aijfact.c:603); auto picks the MXU banded solve when the
+        # (aijfact.c:603); auto picks the banded solve when the
         # factors are fp32 + band-viable, else level scheduling
         from petsctpu.pc.parallel import band_solve_viable
         tri = "band2" if band_solve_viable([L], [U], dtype) else "level"
@@ -286,7 +285,7 @@ def make_icc(A_host, dtype=None, levels: int = 0,
                                   shift_amount=shift_amount)
     L = sp.csr_matrix(Ustrict.T)
     if tri == "auto":
-        # same policy as ILU: fp32 band-viable factors take the MXU
+        # same policy as ILU: fp32 band-viable factors take the
         # two-phase banded solve, else level scheduling
         from petsctpu.pc.parallel import band_solve_viable
         tri = "band2" if band_solve_viable([L], [Ustrict], dtype) \

@@ -3,11 +3,10 @@
 Reference flow: every Newton/TS operator refresh re-runs PCSetUp_GAMG
 (src/ksp/pc/impls/gamg/gamg.c:533) — graph, aggregation, prolongator
 smoothing (agg.c:1110) and Galerkin MatPtAP (gamg.c:156) — all host
-work. On TPU that host round-trip costs seconds per refresh (round-2
-weakness #3). This module freezes the SYMBOLIC side once (aggregates,
-tentative P0, all product patterns — the reference's own
-symbolic/numeric split, matmatmult.c:29) and re-builds the NUMERIC
-hierarchy on device as one jitted program:
+work, and a host round trip per refresh. This module freezes the
+SYMBOLIC side once (aggregates, tentative P0, all product patterns —
+the reference's own symbolic/numeric split, matmatmult.c:29) and
+re-builds the NUMERIC hierarchy on device as one jitted program:
 
     per level:  dinv, λmax(D⁻¹A) by power iteration,
                 P = P0 − ω D⁻¹A P0        (frozen union pattern)
@@ -292,55 +291,27 @@ class PPair:
 @jax.tree_util.register_dataclass
 @dataclass(frozen=True)
 class FillTemplate:
-    """Frozen-pattern operator whose numerics refill inside jit.
-
-    SELL (Pallas lane-gather SpMV) when the pattern is viable on TPU,
-    else ELL. Probing multiplies against a block of vectors via
-    `mult_block` — SELL runs a lax.map of fast SpMVs; ELL uses one
-    chunked row-gather SpMM (dense picks of NV-wide rows amortize the
-    gather instruction ~4x over scalar picks, measured on v5e)."""
+    """Frozen-pattern ELL operator whose numerics refill inside jit.
+    Probing multiplies it against a block of vectors via `mult_block`
+    (one chunked row-gather SpMM)."""
 
     ell_tmpl: AIJ
     ell_pos: jax.Array
-    sell_tmpl: Any = None
-    sell_pos: Any = None
-    sell_diag: Any = None
-    use_sell: bool = field(metadata=dict(static=True), default=False)
 
     @classmethod
     def plan(cls, M: sp.csr_matrix, dtype=np.float32) -> "FillTemplate":
-        import jax as _jax
         M = _csr_entry_index(sp.csr_matrix(M).astype(dtype))
         tmpl = aij_from_scipy(M, dtype=dtype)
         pos = jnp.asarray(_ell_positions(M, tmpl), jnp.int32)
-        use_sell = False
-        s_tmpl = s_pos = s_diag = None
-        if (np.dtype(dtype) == np.float32
-                and _jax.default_backend() == "tpu"
-                and M.shape[0] == M.shape[1]):
-            from petsctpu.mat.sell import sell_template, sell_viable
-            if sell_viable(M):
-                s_tmpl, s_pos, s_diag = sell_template(M)
-                use_sell = True
-        return cls(tmpl, pos, s_tmpl, s_pos, s_diag, use_sell)
+        return cls(tmpl, pos)
 
-    def fill(self, data: jax.Array):
-        if self.use_sell:
-            from petsctpu.mat.sell import sell_fill
-            return sell_fill(self.sell_tmpl, self.sell_pos,
-                             self.sell_diag, data)
-        return _fill_template(self.ell_tmpl, self.ell_pos, data)
-
-    def fill_ell(self, data: jax.Array) -> AIJ:
+    def fill(self, data: jax.Array) -> AIJ:
         return _fill_template(self.ell_tmpl, self.ell_pos, data)
 
 
-def mult_block(op, X: jax.Array) -> jax.Array:
-    """Y[v] = op.mult(X[v]) for a block of vectors X [NV, m]."""
-    from petsctpu.mat.sell import SellMat
-    if isinstance(op, SellMat):
-        return jax.lax.map(op.mult, X)
-    # ELL row-gather SpMM: one NV-wide row pick per stored entry
+def mult_block(op: AIJ, X: jax.Array) -> jax.Array:
+    """Y[v] = op.mult(X[v]) for a block of vectors X [NV, m]: one
+    NV-wide row pick per stored ELL entry."""
     cols, vals = op.cols, op.vals               # [n, K]
     NV = X.shape[0]
     n, K = cols.shape
@@ -378,7 +349,7 @@ class GAMGProbeLevelPlan:
 @dataclass(frozen=True)
 class GAMGProbePlan:
     """Device GAMG refresh via comb-probe Galerkin: the three SpGEMM
-    numerics of GAMGDevicePlan (gather-ceiling-bound, ~2.7 s on ex56)
+    numerics of GAMGDevicePlan (gather-bound)
     become ~ncp + 3·ncc colored SpMVs per level through the fast
     kernels + small extraction gathers. Reference being replaced:
     PCSetUp_GAMG's MatPtAP/MatMatMult host chain

@@ -73,9 +73,8 @@ def band_solve_viable(tris_lower, tris_upper, dtype,
                       mem_cap_bytes: int = 2 * 1024 * 1024 * 1024,
                       tile: int = 128) -> bool:
     """Auto triangular-solve strategy probe: the banded two-phase plan
-    is selected when (a) the value dtype is fp32 (the perf path — fp64
-    matmuls are software-emulated on TPU, where the gather-based
-    level-scheduled solve wins) and (b) the dense band storage
+    is selected when (a) the value dtype is fp32 (fp64 factors take
+    the gather-based level-scheduled solve) and (b) the dense band storage
     (off + prefix tables, ~2·nt·T·W floats per triangle) fits the cap.
     RCM-ordered stencil factors pass; SuperLU fill patterns with
     near-n bandwidth fail back to level scheduling."""

@@ -4,7 +4,7 @@ Reference: PCSOR (src/ksp/pc/impls/sor) delegating to MatSOR
 (src/mat/impls/aij/seq/aij.c:1463). A Gauss-Seidel sweep is a
 triangular solve in disguise:
     x ← (D/ω + L)⁻¹ (b − U x + ((1−ω)/ω) D x)
-so on TPU each sweep is one level-scheduled SpTRSV (mat/factor.py)
+so on the device each sweep is one level-scheduled SpTRSV (mat/factor.py)
 plus an ELL SpMV — the sequential row loop becomes a wavefront loop.
 Supports forward / backward / symmetric sweeps and ω ≠ 1.
 """

@@ -3,9 +3,8 @@
 The reference wraps the external SPAI 3.0 library
 (src/ksp/pc/impls/spai/ispai.c, PCSPAISetEpsilon etc.); here the
 Frobenius-norm SPAI is implemented natively, because an approximate
-inverse is the *ideal* TPU preconditioner: the apply is one SpMV
-(MXU/VPU-friendly, no sequential triangular solves, no collectives
-beyond the SpMV's own halo).
+inverse suits an accelerator: the apply is one SpMV (no sequential
+triangular solves, no collectives beyond the SpMV's own halo).
 
 Construction (host, plan-time, batched numpy):
   minimize ||A M - I||_F  column-by-column over a fixed sparsity

@@ -5,11 +5,11 @@ Reference: SNESFAS (src/snes/impls/fas/fas.c — full approximation
 scheme V-cycles with nonlinear smoothers and a Newton coarse solve),
 SNESGS (src/snes/impls/gs — pointwise nonlinear Gauss-Seidel; the
 reference sweeps points, we sweep stencil COLORS so each color's
-pointwise Newton updates run data-parallel on the VPU), SNESNCG
+pointwise Newton updates run data-parallel), SNESNCG
 (src/snes/impls/ncg — Fletcher-Reeves/PRP nonlinear CG with a
 critical-point secant line search).
 
-TPU mapping: a colored NGS sweep is 2 residual evaluations per color
+Device mapping: a colored NGS sweep is 2 residual evaluations per color
 (probe + update), fully vectorized; the FAS V-cycle is a static
 Python recursion over levels (XLA sees straight-line code), with the
 outer iteration a `lax.while_loop`.
@@ -169,7 +169,7 @@ def snes_fas(levels: Sequence[FASLevel], x0: jax.Array,
     CORRECTION, postsmooth. The coarsest level is solved by
     Newton-Krylov (reference default: SNESNEWTONLS on level 0).
 
-    smoother: "ngs" (colored nonlinear Gauss-Seidel — the TPU
+    smoother: "ngs" (colored nonlinear Gauss-Seidel — the
     data-parallel choice), "nrichardson" (the reference's DEFAULT
     level smoother, fasfunc.c:396: one L2-line-search Richardson step
     per sweep — use with npre=npost=1 for fas.c default behavior), or

@@ -4,7 +4,7 @@ Reference: SNESComputeJacobian (src/snes/interface/snes.c:2101)
 dispatches between a user callback, FD-coloring
 (SNESDefaultComputeJacobianColor snesj2.c:36 → MatFDColoringApply
 src/mat/matfd/fdmatrix.c) and matrix-free MFFD (src/snes/mf,
-src/mat/impls/mffd). TPU additions the reference cannot have:
+src/mat/impls/mffd). Additions the reference cannot have:
 
   * `jvp_operator` — EXACT matrix-free Jacobian-vector products via
     jax.jvp (forward-mode AD): no ε, no extra F evaluations;

@@ -17,7 +17,7 @@ system Φ(x) = 0 via the Fischer-Burmeister NCP function
 (lower bound: a = x − lb, b = F; upper bound composed through
 −φ(ub − x, −·)), then runs Newton on a B-subdifferential element with
 an Armijo line search on the merit ½‖Φ‖². Everything is elementwise +
-one jvp — the TPU-friendly variant (no active-set reshuffling at all).
+one jvp — the data-parallel variant (no active-set reshuffling at all).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ u_t + v·∇u = g, trace characteristics back half/full steps and
 interpolate the field at the departure points; the reference's
 bilinear interpolation + VecScatter of off-process departure values).
 
-TPU mapping: departure-point interpolation over the WHOLE grid is one
+Device mapping: departure-point interpolation over the WHOLE grid is one
 batched `map_coordinates` gather (order-1 = the reference's bilinear),
 so a semi-Lagrangian step is two elementwise kernels + one gather —
 no scatter, no per-point loop.

@@ -33,8 +33,8 @@ Hairer & Wanner design parameters, TSRosWRegisterAll :308-588).
     solve, including its literal PETSC_DEFAULT=-2 a2 parameter).
 
 Under jit every stage unrolls statically (stage counts are tableau
-constants), so one XLA program integrates the whole horizon; the MXU
-sees the stage combinations as fused axpy chains.
+constants), so one XLA program integrates the whole horizon; the
+stage combinations fuse into axpy chains.
 """
 
 from __future__ import annotations

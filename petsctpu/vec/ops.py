@@ -5,8 +5,8 @@ include/petsc-private/vecimpl.h:222; VecNorm_MPI = local norm +
 MPI_Allreduce at src/vec/vec/impls/mpi/pvec2.c:48). Here a "vector" is
 just a jax.Array; distribution is expressed by running the SAME code
 inside `shard_map` over a mesh axis, with `axis=<name>` turning local
-reductions into `lax.psum` collectives over ICI. `axis=None` means
-serial — the single code path covers both, the TPU analog of the
+reductions into `lax.psum` collectives. `axis=None` means
+serial — the single code path covers both, the device analog of the
 reference's mpiuni trick (src/sys/mpiuni/mpi.c).
 
 The fused multi-reduction `reduce_all` is the analog of the reference's
@@ -59,8 +59,8 @@ def mdot(x: jax.Array, V: jax.Array, axis: Optional[str] = None):
     """Batched inner products x·V[i] for a stack of vectors V [k, n].
 
     The reference's VecMDot (src/vec/vec/impls/seq/dvec2.c:36) — the
-    GMRES orthogonalization hot spot. On TPU this is a single
-    matrix-vector product on the MXU followed by one psum.
+    GMRES orthogonalization hot spot. Here this is a single
+    matrix-vector product followed by one psum.
     """
     local = V.conj() @ x  # [k]  (VecMDot conjugates V, vdot semantics;
     #                        conj is a no-op for real dtypes)

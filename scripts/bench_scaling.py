@@ -5,7 +5,7 @@ iteration Krylov, 2→32 procs strong scaling; SURVEY §6). Here:
 PIPECG on a sharded stencil Laplacian over an N-device mesh; reports
 time per iteration and parallel efficiency.
 
-Run on a pod slice (or the CPU mesh for plumbing validation):
+Run on the GPUs of one host (or the CPU mesh for plumbing validation):
     python scripts/bench_scaling.py --mode weak --base 1024 --iters 200
 """
 
@@ -14,7 +14,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 sys.path.insert(0, ".")
 
@@ -26,6 +25,7 @@ def run(nshards, m, iters):
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
+    from bench import best_time
     from petsctpu.mat.stencil import StencilMat
     from petsctpu.parallel import par_ksp_solve, sharded_stencil_from
     from petsctpu.pc.simple import JacobiPC
@@ -48,15 +48,9 @@ def run(nshards, m, iters):
 
     def solve():
         return par_ksp_solve(mesh, Sh, b, pc=pc, ksp_type="pipecg",
-                             rtol=1e-30, maxits=iters)
+                             rtol=1e-30, maxits=iters).x
 
-    r = solve()
-    float(r.rnorm)                    # sync
-    t0 = time.perf_counter()
-    r = solve()
-    float(r.rnorm)
-    dt = time.perf_counter() - t0
-    return dt / iters
+    return best_time(solve) / iters
 
 
 def main():
@@ -68,6 +62,10 @@ def main():
     args = ap.parse_args()
 
     import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit("bench_scaling: times need GPUs; JAX found "
+                         f"{dev.platform!r}")
     ndev = len(jax.devices())
     results = []
     shards = [s for s in (1, 2, 4, 8, 16, 32) if s <= ndev]
@@ -84,17 +82,12 @@ def main():
             r["efficiency"] = round(t1 / r["s_per_iter"], 3)
         else:
             r["efficiency"] = round(t1 / (r["s_per_iter"] * r["nshards"]), 3)
-    import jax
-    note = None
-    if jax.devices()[0].platform == "cpu":
-        note = ("CPU-mesh numbers validate plumbing only: virtual devices "
-                "SHARE one host's DRAM bandwidth, so per-device bandwidth "
-                "falls ~1/N and 'efficiency' is bandwidth-bound, not "
-                "communication-bound. Real weak-scaling targets (>=80%) "
-                "apply to multi-chip ICI meshes where each chip brings its "
-                "own HBM.")
+    from bench import card_name_and_power
     print(json.dumps({"mode": args.mode, "results": results,
-                      **({"note": note} if note else {})}))
+                      "device": {"platform": dev.platform,
+                                 "kind": dev.device_kind,
+                                 "count": ndev,
+                                 "card": card_name_and_power()}}))
 
 
 if __name__ == "__main__":

@@ -586,7 +586,7 @@ CASES += [
 CASES += [
     # ---- batch 8: transpose-PC solvers on nonsymmetric factors ------
     # (-pc_factor_transpose_solves is petsctpu's knob to pre-build the
-    # MXU transpose factor plans; the oracle ignores unknown options —
+    # transpose factor plans; the oracle ignores unknown options —
     # the reference builds M^-T on the fly inside PCApplyTranspose)
     Case("sw8_ex2_bicg_ilu", "ex2:m=20,n=20",
          "-ksp_type bicg -pc_type ilu -pc_factor_transpose_solves "

@@ -1,4 +1,4 @@
-"""DIA and MXU-tiled band formats (the general irregular SpMV paths)."""
+"""DIA and dense-tiled band formats (the general irregular SpMV paths)."""
 
 import jax
 import jax.numpy as jnp

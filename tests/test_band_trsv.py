@@ -1,4 +1,4 @@
-"""Banded (MXU-tiled) triangular solves — the fast MatSolve path."""
+"""Banded (dense-tile) triangular solves — the fast MatSolve path."""
 
 import jax
 import jax.numpy as jnp

@@ -48,7 +48,7 @@ class TestCommAudit:
         product of the iteration — including the natural norm — into
         ONE fused psum (the reference still pays 2 MPI_Allreduce
         because its VecMDot and VecNorm stay separate; the audit shows
-        the fully-fused TPU program does 1)."""
+        the fully-fused program does 1)."""
         A = _poisson3d(16)
         Sh, _ = sharded_aij_from_scipy(A, 8, dtype=np.float32)
         b = jnp.zeros(Sh.shape[0], jnp.float32)

@@ -691,7 +691,7 @@ class TestEx54GAMGThermal:
 
 class TestBandFormatGAMG:
     def test_band_levels_match_ell(self):
-        """pc_gamg_mat_type=band (MXU-tiled BandMat level operators,
+        """pc_gamg_mat_type=band (dense-tiled BandMat level operators,
         per-level RCM conjugation, PermutedPC wrap): mathematically
         the same cycle — same CG iteration count as the ELL path."""
         from petsctpu.core.options import Options

@@ -179,10 +179,9 @@ class TestILUDropTol:
 
 
 class TestILUTDenseFallback:
-    """Band-inviable small ILUT factors take a dense MXU triangular
+    """Band-inviable small ILUT factors take a dense triangular
     solve instead of deep level scheduling (the 1000-level SuperLU
-    fill pattern ran ~1e9 scalar gathers in one program — PARITY.md
-    r5 relay-watchdog note)."""
+    fill pattern ran ~1e9 scalar gathers in one program)."""
 
     def _sys(self):
         from petsctpu.models import ex2_system

@@ -5,7 +5,7 @@ iteration counts; here the SAME axis-parametric solver code runs on
 the 8-device CPU mesh, and the distributed iteration counts and
 solutions must match the serial run (SURVEY §4's mpiuni/localhost
 equivalence). Reference: SNESSolve snes.c:3585 + snesj2.c:36 colored
-Jacobians + BASELINE.json config 5 (distributed Newton-Krylov-GAMG).
+Jacobians, distributed Newton-Krylov-GAMG.
 """
 
 import jax

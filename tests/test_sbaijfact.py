@@ -7,6 +7,7 @@ block upper triangle.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import scipy.sparse as sp
 
 from petsctpu.ksp import ksp_solve

@@ -1,8 +1,8 @@
-"""SellMat — Pallas irregular SpMV (source-slice passes).
+"""SellMat — sliced-ELL SpMV over window-grouped passes.
 
-Runs in Pallas interpret mode on CPU (the kernel itself is exercised
-compiled on TPU by bench.py / scripts/probe_sell_tpu.py). Reference
-kernel being replaced: MatMult_SeqAIJ (aij.c:1173)."""
+Checked against scipy on CPU; chip_smoke.py's formats phase compares it
+with scipy on the card. Reference kernel being replaced:
+MatMult_SeqAIJ (aij.c:1173)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -70,15 +70,24 @@ class TestSellMat:
     def test_factory_sell_and_auto(self):
         """-mat_type sell|auto route (MatSetFromOptions analog):
         explicit sell returns the permuted-space SellMat; auto picks
-        BandMat for narrow RCM bands and falls back to aij off-TPU."""
+        BandMat only for a band whose storage stays within twice the
+        nonzeros (a filled band), not for a sparse 5-point band."""
         from petsctpu.mat.factory import mat_from_options
         from petsctpu.models import laplacian_2d
-        import jax
 
+        rng = np.random.default_rng(7)
+        n, B = 1024, 192
+        Af = sp.diags([rng.standard_normal(n - abs(k))
+                       for k in range(-B, B + 1)],
+                      list(range(-B, B + 1))).tocsr()
+        M, perm = mat_from_options(Af, mat_type="auto")
+        assert type(M).__name__ == "BandMat" and perm is None
+        x = rng.standard_normal(n)
+        np.testing.assert_allclose(np.asarray(M.mult(jnp.asarray(x))),
+                                   Af @ x, rtol=1e-10, atol=1e-10)
         A = laplacian_2d(24, 24, dtype=np.float64).tocsr()
         M, perm = mat_from_options(A, mat_type="auto")
-        assert type(M).__name__ == "BandMat"
-        rng = np.random.default_rng(7)
+        assert type(M).__name__ != "BandMat"
         p = rng.permutation(24 * 24)
         As = laplacian_2d(24, 24, dtype=np.float32).tocsr()[p][:, p]
         M2, p2 = mat_from_options(As.tocsr(), mat_type="sell")
@@ -88,7 +97,7 @@ class TestSellMat:
         np.testing.assert_allclose(y, Ap @ x, rtol=2e-5, atol=2e-5)
 
     def test_gamg_levels_through_sell(self):
-        """fmt="sell" AMG: level operators on the Pallas kernel, same
+        """fmt="sell" AMG: level operators on SellMat, same
         convergence as the ELL route."""
         from petsctpu.ksp import ksp_solve
         from petsctpu.mat import aij_from_scipy
@@ -168,7 +177,7 @@ class TestSellBAIJ:
 
 class TestShardedSell:
     """ShardedAIJ diag blocks through SELL (fmt='sell'): the local
-    SpMV of a distributed solve runs the Pallas kernel
+    SpMV of a distributed solve runs SellMat
     (MatMult_MPIAIJ's local MatMult_SeqAIJ, mpiaij.c:1102)."""
 
     def test_dist_mult_matches_ell(self):
@@ -225,8 +234,8 @@ class TestShardedSell:
 
 
 class TestSellMultT:
-    """Chunk-mode transpose product (y = Aᵀr) — the one-hot transpose
-    Pallas kernel used by packed MG restriction (MatMultTranspose_SeqAIJ
+    """Chunk-mode transpose product (y = Aᵀr) — the scatter-add
+    used by packed MG restriction (MatMultTranspose_SeqAIJ
     analog, aij.c:1307; pc/mg.py pack_restrict returns None so the
     cycle rides P.multT when no dense/slant-band R applies)."""
 
@@ -242,7 +251,7 @@ class TestSellMultT:
                            .astype(np.float32), (rows, cols)),
                           shape=(m, n)).tocsr()
         A.sum_duplicates()
-        M = sell_from_scipy(A, G=G, mode="chunk", interpret=True)
+        M = sell_from_scipy(A, G=G, mode="chunk")
         r = rng.standard_normal(m).astype(np.float32)
         y = np.asarray(M.multT(jnp.asarray(r)))
         ref = A.T @ r
@@ -250,43 +259,49 @@ class TestSellMultT:
 
     def test_multT_diag_mode_raises(self):
         A = banded_random(8 * 128 * 2, 60, 5)
-        M = sell_from_scipy(A, G=8, mode="diag", interpret=True)
+        M = sell_from_scipy(A, G=8, mode="diag")
         with pytest.raises(NotImplementedError):
             M.multT(jnp.zeros(A.shape[0], jnp.float32))
 
-    def test_packed_mg_restrict_via_multT(self, monkeypatch):
-        """GAMG packed metas: when P packs as chunk-SELL and R has no
-        dense/slant-band route, rref is None and the cycle restricts
-        through P.multT — result must match the explicit-ELL apply.
-        default_backend is patched to "tpu" so the fmt="auto" pack
-        decisions match production; execution stays interpret-mode
-        Pallas on the CPU devices (mg._unpack_op keys interpret off
-        the real device platform)."""
-        import jax
-
+    def test_packed_mg_restrict_via_multT(self):
+        """GAMG packed metas under pc_gamg_mat_type sell: when P packs
+        as chunk-SELL and R has no dense/slant-band route, rref is None
+        and the cycle restricts through P.multT — result must match
+        the explicit-ELL apply of the same RCM-conjugated hierarchy.
+        A 64x256 strip keeps the RCM-ordered level-0 prolongator
+        chunk-SELL-viable."""
         from petsctpu.core.options import Options
+        from petsctpu.mat import aij_from_scipy
+        from petsctpu.mat.order import get_ordering
         from petsctpu.models import laplacian_2d
         from petsctpu.pc import make_pc
-        from petsctpu.mat import aij_from_scipy
+        from petsctpu.pc.gamg import gamg_hierarchy
+        from petsctpu.pc.mg import make_algebraic_mg_from_hierarchy
 
-        A = laplacian_2d(128, 128, dtype=np.float32).tocsr()
+        A = laplacian_2d(64, 256, dtype=np.float32).tocsr()
         Ad = aij_from_scipy(A, dtype=np.float32)
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
         pc = make_pc("gamg", A=Ad, A_host=A,
-                     options=Options({"pc_gamg_coarse_eq_limit": 64}))
-        monkeypatch.undo()
-        kinds = [m[2][0] if m[2] is not None else None
-                 for m in pc.metas]
-        prefs = [(m[1][0], m[1][-1]) for m in pc.metas]
+                     options=Options({"pc_gamg_coarse_eq_limit": 64,
+                                      "pc_gamg_mat_type": "sell"}))
+        metas = pc.inner.metas          # PermutedPC around PackedMGPC
+        kinds = [m[2][0] if m[2] is not None else None for m in metas]
+        prefs = [(m[1][0], m[1][-1]) for m in metas]
         assert kinds[0] is None, (kinds, prefs)
         assert prefs[0] == ("sell", "chunk"), prefs
         b = jnp.asarray(np.random.default_rng(0)
                         .standard_normal(A.shape[0]).astype(np.float32))
         y = np.asarray(pc.apply(b))
-        pc_ell = make_pc("gamg", A=Ad, A_host=A,
-                         options=Options({"pc_gamg_coarse_eq_limit": 64,
-                                          "pc_gamg_mat_type": "ell"}))
-        y2 = np.asarray(pc_ell.apply(b))
+        # reference: the same hierarchy in the same RCM frame on ELL
+        As, Ps = gamg_hierarchy(A, coarse_n=64)
+        perms = [get_ordering(sp.csr_matrix(M), "rcm") for M in As]
+        Asp = [sp.csr_matrix(M)[p][:, p].tocsr()
+               for M, p in zip(As, perms)]
+        Psp = [sp.csr_matrix(P)[perms[l]][:, perms[l + 1]].tocsr()
+               for l, P in enumerate(Ps)]
+        ref = make_algebraic_mg_from_hierarchy(Asp, Psp, dtype=np.float32,
+                                               fmt="ell")
+        y2 = np.zeros_like(y)
+        y2[perms[0]] = np.asarray(ref.apply(b[jnp.asarray(perms[0])]))
         scale = np.abs(y2).max()
         np.testing.assert_allclose(y / scale, y2 / scale,
                                    rtol=2e-4, atol=2e-5)
